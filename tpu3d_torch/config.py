@@ -1,0 +1,219 @@
+"""Central configuration: the port's own copy of tpu3d's dataclasses, with
+the same fields and defaults (tpu3d/config.py, whose comments give the
+reasons behind each default). Fields of stages the port does not have yet
+are carried too, so a config round-trips between the two packages.
+
+``resolve_sfm_backend`` is not copied yet: it belongs to the reconstruct
+stage. ``PipelineConfig.from_dict`` rebuilds a config from
+``dataclasses.asdict`` of a tpu3d config, so tests can carry one across.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Pinhole intrinsics. The reference uses K = diag(f, f, 1) with a zero
+    principal point, valid because keypoints are stored in *centered* image
+    coordinates (x - W/2, -(y - H/2)) — feature_extraction.py:34, sfm.py:104.
+    We keep that convention: it makes K diagonal and the math symmetric."""
+
+    focal_length: float = 2378.98305085  # ref sfm.py:24 (ystad_kloster)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Classical (SIFT-style) feature front-end.
+
+    The reference extracts DISK keypoints with max_num_keypoints=2048
+    (feature_extraction.py:10). We keep the same keypoint budget so the rest
+    of the pipeline sees identical shapes."""
+
+    model: str = "classical"
+    weights: str = ""
+    max_keypoints: int = 2048
+    num_octaves: int = 4
+    scales_per_octave: int = 3
+    sigma0: float = 1.6
+    contrast_threshold: float = 0.006
+    edge_threshold: float = 10.0
+    nms_radius: int = 2
+    descriptor_patch_scale: float = 6.0  # descriptor support = scale * sigma
+    upright: bool = False
+    fused_descriptor: bool | None = None
+    batch_size: int = 4
+    approx_topk_recall: float = 0.0
+    patch_precision: str = "highest"
+    orient_precision: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    """BoW tf-idf pair retrieval (ref bow.py + matching.py:22-82)."""
+
+    codebook_size: int = 200      # ref bow.py:7
+    kmeans_iters: int = 10        # ref uses 1 (bow.py:8); more is strictly better
+    top_k: int = 10               # ref matching.py:51
+    similarity_threshold: float = 0.5
+    min_neighbors: int = 3        # always keep this many top neighbors
+    sequential_prior: int = 2     # 0 disables
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchingConfig:
+    """Descriptor matching + pair acceptance gates (ref matching.py:84-189)."""
+
+    ratio_threshold: float = 0.95      # Lowe ratio for mutual-NN matcher
+    min_raw_matches: int = 50          # early-skip gate (ref >8, matching.py:130)
+    min_pair_matches: int = 100
+    min_first_pair_inliers: int = 100  # bootstrap pair must be strong
+    min_inliers: int = 10              # ref matching.py:144 (> 10)
+    min_track_overlap: float = 0.1
+    canonical_select: bool = True
+    ransac_threshold_px: float = 1.0   # ref matching.py:134
+    matcher: str = "mnn"
+    weights: str = ""
+    pair_batch: int = 32
+    prematch: bool = False
+    rescue_candidates: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """Batched-hypothesis RANSAC (replaces cv2's serial RANSAC): a fixed
+    hypothesis budget, drawn up front and scored in one batch, instead of
+    a data-dependent early exit."""
+
+    num_hypotheses: int = 512
+    threshold_px: float = 1.0          # ref sfm.py:108 (threshold=1)
+    seed: int = 0
+    use_five_point: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class BAConfig:
+    """Levenberg–Marquardt bundle adjustment with camera-reduced Schur
+    complement (replaces scipy.optimize.least_squares at sfm.py:38)."""
+
+    max_iters: int = 20
+    mid_max_iters: int = 12
+    mid_cg_iters: int = 24
+    midrun_refit: bool = True
+    lm_lambda_init: float = 1e-3
+    lm_lambda_up: float = 3.0
+    lm_lambda_down: float = 3.0
+    ftol: float = 1e-8                 # ref sfm.py:38 ftol=1e-8
+    robust_huber_px: float = 3.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SfMConfig:
+    camera: CameraConfig = CameraConfig()
+    ransac: RansacConfig = RansacConfig()
+    ba: BAConfig = BAConfig()
+    min_pnp_inliers: int = 10          # ref matching.py:144 / sfm acceptance
+    register_batch: int = 8
+    max_tracks: int = 400_000          # preallocated global track capacity
+    match_capacity: int = 2048         # per-pair padded match capacity
+    backend: str = "auto"
+    register_all: bool = False
+    min_new_points: int = 1            # triangulate if any new points (sfm.py:130)
+    run_pair_ba: bool = True
+    run_global_ba: bool = True         # new capability (reference has none)
+    global_ba_every: int = 8           # run global BA every N registrations
+    global_ba_growth: float = 1.12
+    local_window: int = 25
+    edge_consistency_gate: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseConfig:
+    """Dense voxel radiance reconstruction (ref sdf.py / plenoxel.py)."""
+
+    grid_resolution: int = 256         # ref plenoxel.py:128 N=256 / sdf.py 250
+    sh_degree: int = 2                 # 9 coeffs per color channel (27 + 1 density)
+    num_samples: int = 192             # ref plenoxel.py:133 nb_bins=192 (sdf: 160)
+    near: float = 2.0                  # ref plenoxel.py:133 hn=2
+    far: float = 6.0                   # ref plenoxel.py:133 hf=6
+    scene_scale: float = 1.5           # ref plenoxel.py:21 scale=1.5 / sdf.py:63
+    batch_size: int = 2048             # ref sdf.py:421 / plenoxel.py:104
+    learning_rate: float = 1e-2        # ref sdf.py:417 / plenoxel.py:129
+    optimizer: str = "adam"
+    lr_milestones: Tuple[int, ...] = (2, 4, 8)  # ref MultiStepLR milestones
+    lr_gamma: float = 0.5
+    epochs: int = 1                    # ref sdf.py:411
+    white_background: bool = True      # ref compositing adds (1 - acc)
+    hierarchical: bool = False         # coarse->fine importance sampling
+    contraction: bool = False
+    n_coarse: int = 64                 # density-only pass samples
+    n_fine: int = 64                   # importance samples (total = sum)
+    per_ray_aabb: bool = True          # clip each ray's band to the grid box
+    density_activation: str = "relu"   # ref sdf.py:376-377 relu(sdf)
+    occupancy_prune: bool = False
+    occupancy_factor: int = 4          # coarse cell = factor^3 voxels
+    occupancy_threshold: float = 0.5
+    occupancy_probes: int = 128        # band probes per ray
+    occupancy_every: int = 500         # refresh cadence (train steps)
+    coarse_epochs: int = 0
+    coarse_factor: int = 2
+    scan_chunk: int = 16
+    tv_sigma: float = 0.0
+    tv_sh: float = 0.0
+    tv_crop: int = 32
+    exposure: bool = False
+    exposure_lr: float = 1e-2
+    sh_background: bool = False
+    background_lr: float = 1e-2
+    sparsity_sigma: float = 0.0
+    camera_gate: bool = False
+    camera_gate_epoch: int = 2
+    camera_gate_mad: float = 3.0
+    camera_gate_min_keep: float = 0.85
+    camera_gate_probe_rays: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout. data = ray/image/observation batch axis;
+    model = voxel-brick / Schur-block axis."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1            # -1: all devices on data axis
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    camera: CameraConfig = CameraConfig()
+    frontend: FrontendConfig = FrontendConfig()
+    retrieval: RetrievalConfig = RetrievalConfig()
+    matching: MatchingConfig = MatchingConfig()
+    sfm: SfMConfig = SfMConfig()
+    dense: DenseConfig = DenseConfig()
+    mesh: MeshConfig = MeshConfig()
+    image_dir: Optional[str] = None
+    artifact_dir: str = "artifacts"
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PipelineConfig":
+        """Build a config from a nested dict such as ``dataclasses.asdict``
+        of a tpu3d ``PipelineConfig``; missing keys keep their defaults."""
+        return _from_dict(cls, d)
+
+
+def _from_dict(cls, d: dict):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        default = cls.__dataclass_fields__[f.name].default
+        if dataclasses.is_dataclass(default) and isinstance(v, dict):
+            v = _from_dict(type(default), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
