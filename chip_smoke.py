@@ -18,19 +18,28 @@ Phases, one line each, any failure exits non-zero:
                error against the scene's poses, peak memory and the kernels'
                launch counts; then the same stages once more under
                torch.profiler, for the device's busy share per stage.
+  5. dense   — tpu3d's dense artifacts for the same scene with an analytic
+               256^3 x 28 grid of its planes (``make_dense_artifacts``),
+               scored by densify_eval_only on the card (held-out views 4,
+               12, 20 at stride 2, 192 samples): PSNR against tpu3d's on the
+               CPU, trilinear_kernel launches, peak memory, per-view render
+               seconds, and one view under torch.profiler.
 
 The line before the last is the kernel table as JSON; the last line is the
-device JSON. ``make_scene`` and ``rotation_errors_deg`` are shared with the
-CPU tests (tests/test_torch_slice.py).
+device JSON. ``make_scene``, ``make_dense_artifacts`` and
+``rotation_errors_deg`` are shared with the CPU tests
+(tests/test_torch_slice.py, tests/test_torch_dense.py).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -45,6 +54,21 @@ TPU3D_CPU_ACCEPTED = 24
 MAX_MEDIAN_ROT_ERR_DEG = 0.5
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12           # FP32 outside the tensor cores
+# The dense phase: tpu3d's default DenseConfig width (256^3 x 28, 192
+# samples, per-ray box clipping) on make_scene's views at stride 2, in
+# evaluate_views' chunks of 8,192 rays.
+PLANE_SIZE = 12.0
+DENSE_RES = 256
+DENSE_SIGMA = 2000.0              # density on the plane layers (normalized units)
+DENSE_CHUNK = 8192
+_SH_C0 = 0.282095
+# Mean held-out PSNR (views 4, 12, 20) that tpu3d's evaluate_views gives on
+# the CPU for make_dense_artifacts(make_scene(SCENE_SEED)), as
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_dense.py` prints;
+# the port must come within 0.05 dB of it.
+TPU3D_CPU_DENSE_PSNR = 16.837276284315323
+MAX_DENSE_PSNR_DIFF_DB = 0.05
+SLICE_KERNELS = ("patch_sample_kernel", "top2_kernel")
 
 
 # --------------------------------------------------------------------------
@@ -80,13 +104,15 @@ def make_scene(seed: int = SCENE_SEED, n_views: int = N_VIEWS,
     the corner, rendered by ray–plane intersection.
 
     Returns {"gray": (N, H, W) uint8, "rgb": (N, H, W, 3) uint8,
-    "R": (N, 3, 3), "t": (N, 3) world->camera, "focal": float}, in the
-    pipeline's camera model: a pixel (x, y) is the centered point
-    (x - W/2, -(y - H/2)) = focal * Xc[:2] / Xc[2]."""
+    "R": (N, 3, 3), "t": (N, 3) world->camera, "focal": float,
+    "planes": [(normal axis, (in-plane axes a, b), texture)],
+    "texels": texels per unit}, in the pipeline's camera model: a pixel
+    (x, y) is the centered point (x - W/2, -(y - H/2)) = focal * Xc[:2] /
+    Xc[2]. A plane point (pa, pb) shows texture[pb * texels, pa * texels]."""
     from scipy.ndimage import map_coordinates
 
     rng = np.random.default_rng(seed)
-    S = 12.0
+    S = PLANE_SIZE
     focal = 0.9 * width
     dist = 5.6
     n_tex = int(S * focal / dist)           # about one texel per pixel
@@ -124,7 +150,84 @@ def make_scene(seed: int = SCENE_SEED, n_views: int = N_VIEWS,
         ts.append(-R @ C)
     gray = (np.clip(np.stack(grays), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     return {"gray": gray, "rgb": np.repeat(gray[..., None], 3, axis=-1),
-            "R": np.stack(Rs), "t": np.stack(ts), "focal": float(focal)}
+            "R": np.stack(Rs), "t": np.stack(ts), "focal": float(focal),
+            "planes": planes, "texels": texels}
+
+
+def make_dense_artifacts(root: str, scene: dict, res: int = DENSE_RES,
+                         seed: int = SCENE_SEED) -> dict:
+    """Write tpu3d's dense-stage artifacts for ``scene`` into ``root``, as
+    densify would leave them for ``densify --eval-only`` and ``render``:
+
+      reconstruction       cams = [so3_log(R), t] and points on the planes
+      reconstruction_meta  registered_names img_000.png ...
+      dense_meta           normalization, auto_near_far band, 192 samples,
+                           per-ray box clipping, no contraction
+      dense_grid           an analytic res^3 x 28 voxelization of the three
+                           textured planes: density on the node layers at
+                           each plane (+-1), SH DC = texture / 0.282095 on
+                           +-2 layers, and bg_sh giving the scene's 0.5 grey
+
+    The grid's box puts each plane on a node layer with ``m`` layers of
+    margin; the recorded normalization maps that box to [-1, 1]^3. Returns
+    the dense_grid arrays and the meta."""
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    from tpu3d_torch.core.lie import so3_log_np
+    from tpu3d_torch.dense.train import SceneNormalization, auto_near_far
+    from tpu3d_torch.io.artifacts import ArtifactStore
+
+    S = PLANE_SIZE
+    m = max(2, res // 32)                       # margin layers around the planes
+    vox = S / (res - 1 - 2 * m)
+    lo = -m * vox
+    norm = SceneNormalization(np.full(3, lo + 0.5 * (res - 1) * vox, np.float32),
+                              float(0.5 * (res - 1) * vox))
+    inner = slice(m, res - m)                   # nodes over [0, S] in-plane
+    w = lo + vox * np.arange(res)[inner]        # their world coordinates
+    grid = np.zeros((res, res, res, 28), np.float32)
+    for axis, (a, b), tex in scene["planes"]:
+        # box-filter the texture to the voxel footprint, then sample it at
+        # the nodes; the slab's two free axes are (a, b) in increasing order
+        tex_v = gaussian_filter(tex, 0.5 * vox * scene["texels"])
+        first, second = sorted((a, b))
+        c1, c2 = np.meshgrid(w, w, indexing="ij")
+        coord = {first: c1, second: c2}
+        dc = map_coordinates(tex_v, [coord[b] * scene["texels"], coord[a] * scene["texels"]],
+                             order=1, mode="nearest") / _SH_C0
+        for layer in range(m - 2, m + 3):
+            idx = [inner, inner, inner]
+            idx[axis] = layer
+            for ch in (1, 10, 19):              # SH DC of r, g, b
+                grid[tuple(idx) + (ch,)] = dc
+            if abs(layer - m) <= 1:
+                grid[tuple(idx) + (0,)] = DENSE_SIGMA
+    rng = np.random.default_rng(seed)
+    pts = []
+    for axis, (a, b), _ in scene["planes"]:
+        p = np.zeros((1000, 3))
+        p[:, a], p[:, b] = rng.uniform(0, S, (2, 1000))
+        pts.append(p)
+    points = np.concatenate(pts).astype(np.float32)
+    cams = np.stack([np.concatenate([so3_log_np(R), t])
+                     for R, t in zip(scene["R"], scene["t"])]).astype(np.float32)
+    near, far = auto_near_far(cams, points, norm)
+    bg_sh = np.zeros((3, 9), np.float32)
+    bg_sh[:, 0] = 0.5 / _SH_C0
+    arrays = dict(grid=grid, min_bound=np.full(3, -1.0, np.float32),
+                  max_bound=np.full(3, 1.0, np.float32), bg_sh=bg_sh)
+    meta = {"model": "plenoxel", "near": float(near), "far": float(far),
+            "num_samples": 192, "per_ray_aabb": True, "downscale": 1,
+            "contraction": False, "norm_center": norm.center.astype(np.float64).tolist(),
+            "norm_scale": norm.scale, "cascade_detail": None}
+    store = ArtifactStore(root)
+    store.save("reconstruction", cams=cams, points=points,
+               registered=np.arange(len(cams), dtype=np.int32))
+    store.save_json("reconstruction_meta", {
+        "registered_names": [f"img_{i:03d}.png" for i in range(len(cams))], "downscale": 1})
+    store.save_json("dense_meta", meta)
+    store.save("dense_grid", **arrays)
+    return dict(arrays, meta=meta, cams=cams)
 
 
 def rotation_errors_deg(registrations, R) -> np.ndarray:
@@ -281,6 +384,152 @@ def _check_top2(torch, dev) -> dict:
                 library_ms=None)
 
 
+def _check_trilinear(torch, dev, scene, dense) -> dict:
+    """trilinear_kernel against its plain version at one render launch of
+    the dense phase: the 256^3 x 28 grid and the 8,192 x 192 = 1.57 M
+    sample points of the first chunk of held-out view 4."""
+    import torch.nn.functional as F
+
+    from tpu3d_torch.dense.eval import view_rays
+    from tpu3d_torch.dense.render import ray_samples
+    from tpu3d_torch.dense.train import SceneNormalization
+    from tpu3d_torch.kernels import trilinear as tri
+
+    meta = dense["meta"]
+    grid = torch.from_numpy(dense["grid"]).to(dev)
+    mn = torch.from_numpy(dense["min_bound"]).to(dev)
+    mx = torch.from_numpy(dense["max_bound"]).to(dev)
+    norm = SceneNormalization(np.asarray(meta["norm_center"], np.float32), meta["norm_scale"])
+    rays = view_rays(dense["cams"][4], HEIGHT, WIDTH, scene["focal"], norm, stride=2)
+    ro, rd = (torch.from_numpy(a[:DENSE_CHUNK]).to(dev) for a in rays)
+    pts = ray_samples(ro, rd, meta["near"], meta["far"], meta["num_samples"], mn, mx,
+                      clip_aabb=True)[0].contiguous()
+    out, inb = tri.trilinear_sample(grid, mn, mx, pts)
+    ref, ref_inb = tri.trilinear_sample_plain(grid, mn, mx, pts)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.equal(inb, ref_inb):
+        _fail("trilinear_kernel: in-bounds flags differ from the plain version")
+    if not err == 0.0:
+        _fail(f"trilinear_kernel: max |err| {err:.3g} != 0 (kernel and plain version "
+              "round the same operations in the same order)")
+    ms = _time_ms(torch, lambda: tri.trilinear_sample(grid, mn, mx, pts), 50)
+    plain_ms = _time_ms(torch, lambda: tri.trilinear_sample_plain(grid, mn, mx, pts), 5)
+    # Library yardstick: grid_sample on a channels-first copy made beforehand;
+    # its (x, y, z) coordinate order indexes (W, H, D) = (Z, Y, X).
+    vol = grid.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
+    u = (pts - mn) / (mx - mn) * 2 - 1
+    gs_grid = u.flip(-1).reshape(1, 1, 1, -1, 3).contiguous()
+    lib_ms = _time_ms(torch, lambda: F.grid_sample(vol, gs_grid, mode="bilinear",
+                                                   align_corners=True), 10)
+    # (in the box only: grid_sample blends zero padding in beyond it)
+    lib_diff = float((F.grid_sample(vol, gs_grid, mode="bilinear", align_corners=True)
+                      .reshape(vol.shape[1], -1).T - ref)[inb].abs().max())
+    del vol
+    # Bound: points in, values and flags out, plus each grid row the
+    # in-box samples need (the out-of-box ones need none), once.
+    N, C = out.shape
+    X, Y, Z = grid.shape[:3]
+    i0 = tri._corner_setup((X, Y, Z), mn, mx, pts)[0][inb]
+    base = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+    offs = torch.tensor([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1], device=dev)
+    rows = torch.unique((base[:, None] + offs).reshape(-1)).numel()
+    nbytes = 12 * N + 4 * C * N + N + 4 * C * rows + 24
+    flops = N * (C * 21 + 18)
+    bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
+    print(f"kernel trilinear_kernel grid {X}x{Y}x{Z}x{C} N={N} (in box {int(inb.sum())}): "
+          f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"grid_sample_ms={lib_ms:.4f} (max diff in the box {lib_diff:.3g}) "
+          f"bound_ms={bound_ms:.4f} "
+          f"(rows touched {rows}, "
+          f"{nbytes / ms / 1e6:.0f} GB/s)", flush=True)
+    return dict(name="trilinear_kernel", route="cuda", source="tpu3d_torch/csrc/trilinear.cu",
+                replaces="tpu3d/kernels/trilinear.py:82", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
+                else "operations", library_ms=lib_ms)
+
+
+def _run_dense(torch, dev, scene, root) -> dict:
+    """densify_eval_only on the card over the artifacts in ``root``, with the
+    launch counts set to 0 just before it and read just after; then each
+    held-out view rendered once more for its time, and one view under
+    torch.profiler for the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3d_torch.cli import densify_eval_only
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import render_view
+    from tpu3d_torch.dense.grid import grid_from_tpu3d
+    from tpu3d_torch.dense.train import SceneNormalization
+    from tpu3d_torch.io.artifacts import ArtifactStore
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+
+    names = [f"img_{i:03d}.png" for i in range(N_VIEWS)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    out = densify_eval_only(root, scene["rgb"], names, scene["focal"], device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    store = ArtifactStore(root)
+    dm = store.load_json("dense_meta")
+    grid, bg_sh = grid_from_tpu3d(store.load("dense_grid"), dev)
+    norm = SceneNormalization(np.asarray(dm["norm_center"], np.float32), dm["norm_scale"])
+    cfg = DenseConfig(near=dm["near"], far=dm["far"], num_samples=dm["num_samples"],
+                      per_ray_aabb=dm["per_ray_aabb"])
+    cams = store.load("reconstruction")["cams"]
+    views = [names.index(n) for n in out["test_view_names"]]
+    view_secs = []
+    for v in views:
+        t1 = time.time()
+        render_view(grid, cams[v], HEIGHT, WIDTH, scene["focal"], cfg, norm,
+                    stride=2, chunk=DENSE_CHUNK, bg_sh=bg_sh)
+        view_secs.append(time.time() - t1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        render_view(grid, cams[views[0]], HEIGHT, WIDTH, scene["focal"], cfg, norm,
+                    stride=2, chunk=DENSE_CHUNK, bg_sh=bg_sh)
+        prof_wall = time.time() - t1
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    mean = float(out["test_psnr"])
+    n_rays = len(range(0, HEIGHT, 2)) * len(range(0, WIDTH, 2))
+    print(f"dense: densify_eval_only {secs:.3f} s (grid load included); views "
+          f"{out['test_view_names']} PSNR {[float(p) for p in out['test_psnr_per_view']]} "
+          f"mean {mean:.4f} dB "
+          f"(tpu3d on the CPU {TPU3D_CPU_DENSE_PSNR}); calibrated "
+          f"{out['test_psnr_calibrated']:.4f}; per-view render s "
+          f"{[round(s, 4) for s in view_secs]}; {n_rays} rays x {dm['num_samples']} samples "
+          f"per view; peak memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if busy == 0.0:
+        print(f"profile dense view: wall {prof_wall:.3f} s; device time not measured "
+              "(the profiler recorded no CUDA activity)", flush=True)
+    else:
+        print(f"profile dense view: wall {prof_wall * 1e3:.1f} ms (profiled), device busy "
+              f"{busy:.1f} ms ({busy / (prof_wall * 1e3):.1%}); top kernels: "
+              + "; ".join(f"{k[:70]} {v:.2f} ms" for k, v in top), flush=True)
+    want = len(views) * -(-n_rays // DENSE_CHUNK)
+    if launches["trilinear_kernel"] != want:
+        _fail(f"trilinear_kernel launched {launches['trilinear_kernel']} times on the dense "
+              f"path, expected {want}")
+    if not all(np.isfinite(out["test_psnr_per_view"])):
+        _fail(f"dense PSNRs not finite: {out['test_psnr_per_view']}")
+    if not abs(mean - TPU3D_CPU_DENSE_PSNR) <= MAX_DENSE_PSNR_DIFF_DB:
+        _fail(f"dense mean PSNR {mean:.4f} dB is not within {MAX_DENSE_PSNR_DIFF_DB} dB of "
+              f"tpu3d's {TPU3D_CPU_DENSE_PSNR}")
+    return launches
+
+
 def _run_stages(torch, scene, cfg, dev, around=None):
     """extract -> retrieve -> match on the card, each stage timed on the
     host clock up to a synchronize; ``around(stage)`` is a context manager
@@ -321,8 +570,8 @@ def _run_slice(torch, dev, scene, cfg) -> dict:
     for name in ("descriptors_dev", "valid_dev", "keypoints_dev"):
         if getattr(feats, name).device.type != "cuda":
             _fail(f"feature tensor {name} is on {getattr(feats, name).device}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SLICE_KERNELS:
+        if launches[name] <= 0:
             _fail(f"{name} was not launched on the main path")
     errs = rotation_errors_deg(regs, scene["R"])
     n_edges = sum(len(r.edges) for r in regs)
@@ -412,18 +661,34 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s; " + " | ".join(ptxas), flush=True)
     _build.library()
 
-    with f32_scope():
-        print(f"tf32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
-        kernels = [_check_patch_sample(torch, dev), _check_top2(torch, dev)]
-
     t0 = time.time()
     scene = make_scene()
     print(f"scene: {N_VIEWS} views {WIDTH}x{HEIGHT} focal {scene['focal']:.1f} "
           f"rendered in {time.time() - t0:.1f} s", flush=True)
-    cfg = dataclasses.replace(PipelineConfig(), camera=CameraConfig(focal_length=scene["focal"]))
-    launches = _run_slice(torch, dev, scene, cfg)
-    _profile_slice(torch, dev, scene, cfg)
+    dense_root = Path(__file__).resolve().parent / "build" / "chip_smoke_dense"
+    t0 = time.time()
+    dense = make_dense_artifacts(str(dense_root), scene)
+    print(f"dense artifacts: {DENSE_RES}^3 x 28 analytic grid, band near "
+          f"{dense['meta']['near']:.4f} far {dense['meta']['far']:.4f}, written in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    try:
+        with f32_scope():
+            print(f"tf32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+                  f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+            kernels = [_check_patch_sample(torch, dev), _check_top2(torch, dev),
+                       _check_trilinear(torch, dev, scene, dense)]
+        del dense
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(PipelineConfig(),
+                                  camera=CameraConfig(focal_length=scene["focal"]))
+        launches = _run_slice(torch, dev, scene, cfg)
+        _profile_slice(torch, dev, scene, cfg)
+        launches["trilinear_kernel"] = _run_dense(torch, dev, scene,
+                                                  str(dense_root))["trilinear_kernel"]
+    finally:
+        shutil.rmtree(dense_root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -15,6 +15,7 @@ from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.kernels.distance import descriptor_top2, descriptor_top2_plain
 from tpu3d_torch.kernels.patch_sample import (sample_gradient_patches,
                                               sample_gradient_patches_plain)
+from tpu3d_torch.kernels.trilinear import trilinear_sample, trilinear_sample_plain
 from tpu3d_torch.matching.mnn import match_descriptors
 
 pytestmark = pytest.mark.gpu
@@ -113,3 +114,47 @@ def test_match_descriptors_on_the_card(cuda, gen):
     assert (got.valid.cpu() == ref.valid).float().mean().item() > 0.999
     both = got.valid.cpu() & ref.valid
     assert torch.equal(got.idx1.cpu()[both], ref.idx1[both])
+
+
+@pytest.mark.parametrize("C", [28, 1, 32])
+def test_trilinear_kernel_equals_plain(cuda, gen, C):
+    """Bit for bit (the kernel rounds the same operations in the same order
+    as the plain version), with points inside, outside and on the box's
+    faces and corners, and in-bounds flags identical."""
+    X, Y, Z, N = 9, 17, 24, 4000
+    grid = torch.randn((X, Y, Z, C), generator=gen, device=cuda)
+    mn = torch.tensor([-1.0, -2.0, 0.5], device=cuda)
+    mx = torch.tensor([1.0, 0.0, 2.5], device=cuda)
+    pts = mn + (mx - mn) * (torch.rand((N, 3), generator=gen, device=cuda) * 1.2 - 0.1)
+    pts[:8] = torch.stack([torch.where(torch.tensor([(k >> a) & 1 for a in range(3)],
+                                                    device=cuda) > 0, mx, mn)
+                           for k in range(8)])
+    pts[8:16] = mn + (mx - mn) * torch.rand((8, 3), generator=gen, device=cuda)
+    pts[8:16, 1] = mx[1]
+    before = LAUNCHES["trilinear_kernel"]
+    got, got_in = trilinear_sample(grid, mn, mx, pts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["trilinear_kernel"] == before + 1
+    ref, ref_in = trilinear_sample_plain(grid, mn, mx, pts)
+    assert torch.equal(got_in, ref_in) and bool(got_in[:16].all())
+    assert 0 < int(got_in.sum()) < N
+    assert torch.equal(got, ref)
+
+
+def test_render_image_on_the_card(cuda, gen):
+    """render_image through the kernel against the same render on the CPU."""
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.dense.render import render_image
+
+    g = torch.randn((24, 24, 24, 28), generator=gen, device=cuda)
+    g[..., 0] = g[..., 0].abs() * 20
+    vg = VoxelGrid(g, torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda))
+    o = torch.nn.functional.normalize(torch.randn((300, 3), generator=gen, device=cuda), dim=-1)
+    d = torch.nn.functional.normalize(-o + 0.3 * torch.randn((300, 3), generator=gen,
+                                                             device=cuda), dim=-1)
+    o = 2.5 * o
+    bg = torch.randn((3, 9), generator=gen, device=cuda)
+    got = render_image(vg, o, d, 0.5, 4.5, 64, chunk=128, clip_aabb=True, bg_sh=bg)
+    ref = render_image(VoxelGrid(*(x.cpu() for x in vg)), o.cpu(), d.cpu(), 0.5, 4.5, 64,
+                       chunk=128, clip_aabb=True, bg_sh=bg.cpu())
+    assert (got.cpu() - ref).abs().max().item() <= 1e-5

@@ -1,0 +1,133 @@
+"""Volume rendering of a trained voxel grid (tpu3d/dense/render.py), forward
+only: the render/eval path.
+
+alpha = 1 - exp(-sigma * delta); transmittance = shifted cumprod(1 - alpha);
+pixel = sum(w * c) + (1 - sum(w)) * background. tpu3d's two forward routes
+(``render_rays`` through the XLA gather and ``render_rays_packed`` through
+the Pallas sampler) are one function here, ``render_rays``, which samples
+through ``kernels/trilinear.py`` and so launches the CUDA kernel on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from tpu3d_torch.dense.contract import contract as contract_pts
+from tpu3d_torch.dense.grid import VoxelGrid, eval_sh
+from tpu3d_torch.dense.sdf import linspace01, ray_aabb, sample_stratified
+from tpu3d_torch.kernels.trilinear import trilinear_sample
+
+# Euclidean reach of the background disparity tail under contraction
+# (normalized units, scene core ~1).
+_CONTRACT_BG_FAR = 50.0
+
+
+def composite_weights(sigma: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Per-sample compositing weights w = T * alpha. (N, S) -> (N, S)."""
+    delta = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
+    alpha = 1.0 - torch.exp(-sigma * delta)
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+    return trans * alpha
+
+
+def composite(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
+              white_bg: bool = True, bg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sigma: (N, S), rgb: (N, S, 3), z: (N, S) sorted depths -> (N, 3).
+    bg: optional per-ray background colour (N, 3) that replaces white."""
+    w = composite_weights(sigma, z)[..., None]
+    c = (w * rgb).sum(dim=1)
+    if bg is not None:
+        c = c + (1.0 - w.sum(dim=(1, 2)))[..., None] * bg
+    elif white_bg:
+        c = c + 1.0 - w.sum(dim=(1, 2))[..., None]
+    return c
+
+
+def _sample_z(t_near, t_far, n_samples, bg_far=None):
+    """Stratified depths; with ``bg_far`` (contraction) a quarter of the
+    budget is a tail uniform in disparity from t_far out to
+    max(bg_far, 1.05 t_far). Occupancy-guided sampling comes with dense
+    training (dense/occupancy.py)."""
+    if bg_far is None:
+        return sample_stratified(t_near, t_far, n_samples)
+    n_bg = n_samples // 4
+    z_fg = sample_stratified(t_near, t_far, n_samples - n_bg)
+    u = linspace01(n_bg + 1, t_near.device)[1:]
+    bg_end = torch.clamp(t_far * 1.05, min=bg_far)
+    inv = (1.0 / torch.clamp(t_far, min=1e-6))[:, None] * (1.0 - u)[None, :] \
+        + (1.0 / bg_end)[:, None] * u[None, :]
+    return torch.cat([z_fg, 1.0 / inv], dim=-1)
+
+
+def ray_samples(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float,
+                n_samples: int, min_bound: torch.Tensor, max_bound: torch.Tensor,
+                clip_aabb: bool = False, contract: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sample positions along rays: (pts (N*S, 3), dirs (N*S, 3), z (N, S)).
+    clip_aabb intersects each ray's [near, far] band with the box;
+    contract warps the positions (not the depths)."""
+    n = rays_o.shape[0]
+    t_near = torch.full((n,), near, dtype=rays_o.dtype, device=rays_o.device)
+    t_far = torch.full((n,), far, dtype=rays_o.dtype, device=rays_o.device)
+    if clip_aabb:
+        t0, t1, valid = ray_aabb(rays_o, rays_d, min_bound, max_bound)
+        t_near = torch.where(valid, torch.maximum(t_near, t0), t_near)
+        t_far = torch.where(valid, torch.minimum(torch.maximum(t1, t_near + 1e-4), t_far),
+                            t_near + 1e-4)
+    z = _sample_z(t_near, t_far, n_samples, bg_far=_CONTRACT_BG_FAR if contract else None)
+    pts = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
+    if contract:
+        pts = contract_pts(pts)
+    dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
+    return pts.reshape(-1, 3), dirs, z
+
+
+def render_rays(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                near: float, far: float, n_samples: int = 192, white_bg: bool = True,
+                clip_aabb: bool = False, bg: Optional[torch.Tensor] = None,
+                contract: bool = False, base_vg: Optional[VoxelGrid] = None) -> torch.Tensor:
+    """(N, 3) colours of rays through the grid at stratified depths.
+
+    base_vg: optional frozen cascade base grid; ``vg`` is then the detail
+    layer: depths and clipping follow the base's box, the base's raw
+    channels are added before the activations, and the detail grid counts
+    only inside its own box."""
+    n = rays_o.shape[0]
+    rb = base_vg if base_vg is not None else vg
+    pts, dirs, z = ray_samples(rays_o, rays_d, near, far, n_samples, rb.min_bound,
+                               rb.max_bound, clip_aabb, contract)
+    vals, in_b = trilinear_sample(vg.grid, vg.min_bound, vg.max_bound, pts)
+    if base_vg is not None:
+        bvals, bin_b = trilinear_sample(base_vg.grid, base_vg.min_bound,
+                                        base_vg.max_bound, pts)
+        vals = bvals * bin_b[:, None] + vals * in_b[:, None]
+        in_b = torch.ones_like(in_b)
+    sigma = torch.relu(vals[:, 0]) * in_b
+    rgb = eval_sh(vals[:, 1:28].reshape(-1, 3, 9), dirs) * in_b[:, None]
+    return composite(sigma.reshape(n, n_samples), rgb.reshape(n, n_samples, 3), z,
+                     white_bg, bg)
+
+
+def render_image(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                 near: float, far: float, n_samples: int = 192, chunk: int = 4096,
+                 clip_aabb: bool = False, occ_prune: bool = False,
+                 bg_sh: Optional[torch.Tensor] = None, contract: bool = False,
+                 base_grid: Optional[VoxelGrid] = None) -> torch.Tensor:
+    """Full-image render in chunks of ``chunk`` rays (no padding: eager
+    PyTorch has no compiled shape to keep). bg_sh: learned (3, 9)
+    background SH coefficients, composited under the residual
+    transmittance in place of white."""
+    if occ_prune:
+        raise NotImplementedError(
+            "occupancy-pruned rendering needs dense/occupancy.py, which the "
+            "port takes over with dense training")
+    outs = []
+    for s in range(0, rays_o.shape[0], chunk):
+        rd = rays_d[s:s + chunk]
+        bg = None if bg_sh is None else eval_sh(bg_sh.expand(rd.shape[0], 3, 9), rd)
+        outs.append(render_rays(vg, rays_o[s:s + chunk], rd, near, far, n_samples,
+                                clip_aabb=clip_aabb, bg=bg, contract=contract,
+                                base_vg=base_grid))
+    return torch.cat(outs)

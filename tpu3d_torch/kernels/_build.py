@@ -36,6 +36,8 @@ _SIGNATURES = {
     "tpu3d_patch_sample": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, vq, vk, best, second, arg, B, K0, K1, D, stream
     "tpu3d_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # grid, min_bound, max_bound, pts, out, in_bounds, X, Y, Z, C, N, stream
+    "tpu3d_trilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _P],
 }
 
 
