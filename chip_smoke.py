@@ -24,11 +24,21 @@ Phases, one line each, any failure exits non-zero:
                12, 20 at stride 2, 192 samples): PSNR against tpu3d's on the
                CPU, trilinear_kernel launches, peak memory, per-view render
                seconds, and one view under torch.profiler.
+  6. train   — densify (training) on the card from a fresh directory holding
+               only the scene's reconstruction, at tpu3d's default width
+               (256^3 x 28, 192 samples, batch 2048, Adam) with ray stride 8
+               (100 steps), then its held-out evaluation: steps, wall, rays/s
+               after the first 10 steps, first and last logged loss, PSNR
+               against tpu3d's on the CPU, peak memory, both kernels'
+               launches; then one training step under torch.profiler: the
+               device time of the forward kernel, the scatter with its fill,
+               the Adam update and the elementwise kernels, and the busy share.
 
 The line before the last is the kernel table as JSON; the last line is the
-device JSON. ``make_scene``, ``make_dense_artifacts`` and
-``rotation_errors_deg`` are shared with the CPU tests
-(tests/test_torch_slice.py, tests/test_torch_dense.py).
+device JSON. ``make_scene``, ``make_reconstruction_artifacts``,
+``make_dense_artifacts`` and ``rotation_errors_deg`` are shared with the CPU
+tests (tests/test_torch_slice.py, tests/test_torch_dense.py,
+tests/test_torch_train.py).
 """
 from __future__ import annotations
 
@@ -68,6 +78,20 @@ _SH_C0 = 0.282095
 # the port must come within 0.05 dB of it.
 TPU3D_CPU_DENSE_PSNR = 16.837276284315323
 MAX_DENSE_PSNR_DIFF_DB = 0.05
+# The train phase: tpu3d's densify at its default width (256^3 x 28, 192
+# samples, batch 2048, Adam 1e-2, one epoch) on make_scene's 21 training
+# views, every 8th pixel in each direction (tpu3d's --ray-stride, a depth
+# cut: 205,821 rays, 100 steps). The loss is read back every 10 steps.
+TRAIN_RAY_STRIDE = 8
+TRAIN_LOG_EVERY = 10
+# Mean held-out PSNR (views 4, 12, 20) of tpu3d's train_plenoxel (seed 0,
+# what its densify uses) + evaluate_views on the CPU for the same artifacts
+# and flags, as `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_train.py`
+# prints. Over seeds 0, 1, 2 tpu3d gives 11.8299 / 11.8347 / 11.9089 dB, a
+# spread of 0.0789 dB; the port's random streams differ from tpu3d's, so it
+# must come within twice that.
+TPU3D_CPU_TRAIN_PSNR = 11.82993530895601
+MAX_TRAIN_PSNR_DIFF_DB = 0.16
 SLICE_KERNELS = ("patch_sample_kernel", "top2_kernel")
 
 
@@ -154,13 +178,38 @@ def make_scene(seed: int = SCENE_SEED, n_views: int = N_VIEWS,
             "planes": planes, "texels": texels}
 
 
+def make_reconstruction_artifacts(root: str, scene: dict, seed: int = SCENE_SEED) -> dict:
+    """Write what tpu3d's reconstruct stage leaves for ``densify`` into
+    ``root``: ``reconstruction`` (cams = [so3_log(R), t] and 1,000 points
+    on each plane) and ``reconstruction_meta`` (registered_names
+    img_000.png ..., downscale 1). Returns {"cams", "points"}."""
+    from tpu3d_torch.core.lie import so3_log_np
+    from tpu3d_torch.io.artifacts import ArtifactStore
+
+    rng = np.random.default_rng(seed)
+    pts = []
+    for axis, (a, b), _ in scene["planes"]:
+        p = np.zeros((1000, 3))
+        p[:, a], p[:, b] = rng.uniform(0, PLANE_SIZE, (2, 1000))
+        pts.append(p)
+    points = np.concatenate(pts).astype(np.float32)
+    cams = np.stack([np.concatenate([so3_log_np(R), t])
+                     for R, t in zip(scene["R"], scene["t"])]).astype(np.float32)
+    store = ArtifactStore(root)
+    store.save("reconstruction", cams=cams, points=points,
+               registered=np.arange(len(cams), dtype=np.int32))
+    store.save_json("reconstruction_meta", {
+        "registered_names": [f"img_{i:03d}.png" for i in range(len(cams))], "downscale": 1})
+    return {"cams": cams, "points": points}
+
+
 def make_dense_artifacts(root: str, scene: dict, res: int = DENSE_RES,
                          seed: int = SCENE_SEED) -> dict:
     """Write tpu3d's dense-stage artifacts for ``scene`` into ``root``, as
     densify would leave them for ``densify --eval-only`` and ``render``:
 
-      reconstruction       cams = [so3_log(R), t] and points on the planes
-      reconstruction_meta  registered_names img_000.png ...
+      reconstruction,      as make_reconstruction_artifacts
+      reconstruction_meta
       dense_meta           normalization, auto_near_far band, 192 samples,
                            per-ray box clipping, no contraction
       dense_grid           an analytic res^3 x 28 voxelization of the three
@@ -173,7 +222,6 @@ def make_dense_artifacts(root: str, scene: dict, res: int = DENSE_RES,
     the dense_grid arrays and the meta."""
     from scipy.ndimage import gaussian_filter, map_coordinates
 
-    from tpu3d_torch.core.lie import so3_log_np
     from tpu3d_torch.dense.train import SceneNormalization, auto_near_far
     from tpu3d_torch.io.artifacts import ArtifactStore
 
@@ -202,16 +250,9 @@ def make_dense_artifacts(root: str, scene: dict, res: int = DENSE_RES,
                 grid[tuple(idx) + (ch,)] = dc
             if abs(layer - m) <= 1:
                 grid[tuple(idx) + (0,)] = DENSE_SIGMA
-    rng = np.random.default_rng(seed)
-    pts = []
-    for axis, (a, b), _ in scene["planes"]:
-        p = np.zeros((1000, 3))
-        p[:, a], p[:, b] = rng.uniform(0, S, (2, 1000))
-        pts.append(p)
-    points = np.concatenate(pts).astype(np.float32)
-    cams = np.stack([np.concatenate([so3_log_np(R), t])
-                     for R, t in zip(scene["R"], scene["t"])]).astype(np.float32)
-    near, far = auto_near_far(cams, points, norm)
+    rec = make_reconstruction_artifacts(root, scene, seed)
+    cams = rec["cams"]
+    near, far = auto_near_far(cams, rec["points"], norm)
     bg_sh = np.zeros((3, 9), np.float32)
     bg_sh[:, 0] = 0.5 / _SH_C0
     arrays = dict(grid=grid, min_bound=np.full(3, -1.0, np.float32),
@@ -221,10 +262,6 @@ def make_dense_artifacts(root: str, scene: dict, res: int = DENSE_RES,
             "contraction": False, "norm_center": norm.center.astype(np.float64).tolist(),
             "norm_scale": norm.scale, "cascade_detail": None}
     store = ArtifactStore(root)
-    store.save("reconstruction", cams=cams, points=points,
-               registered=np.arange(len(cams), dtype=np.int32))
-    store.save_json("reconstruction_meta", {
-        "registered_names": [f"img_{i:03d}.png" for i in range(len(cams))], "downscale": 1})
     store.save_json("dense_meta", meta)
     store.save("dense_grid", **arrays)
     return dict(arrays, meta=meta, cams=cams)
@@ -450,12 +487,101 @@ def _check_trilinear(torch, dev, scene, dense) -> dict:
                 else "operations", library_ms=lib_ms)
 
 
+def _train_inputs(root: str, scene: dict):
+    """(DenseConfig, RayDataset) of the train phase, prepared as densify
+    prepares them: coremax normalization, the sparse cloud's band, the
+    name-keyed holdout, every TRAIN_RAY_STRIDE-th pixel of the train views."""
+    from tpu3d_torch.cli import registered_views
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import dataset_from_views, split_views_by_name
+    from tpu3d_torch.dense.train import auto_near_far, normalize_scene_coremax
+    from tpu3d_torch.io.artifacts import ArtifactStore
+
+    cams, names, _ = registered_views(root)
+    points = ArtifactStore(root).load("reconstruction")["points"]
+    norm = normalize_scene_coremax(points)
+    near, far = auto_near_far(cams, points, norm)
+    train_idx, _ = split_views_by_name(names, 8)
+    return (DenseConfig(scene_scale=1.0, near=near, far=far),
+            dataset_from_views(cams, scene["rgb"], scene["focal"], train_idx, norm,
+                               stride=TRAIN_RAY_STRIDE))
+
+
+def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
+    """trilinear_grad_kernel against its plain version at one training
+    step's shape: the 256^3 x 28 grid and the 2,048 x 192 = 393,216 jittered
+    sample points of the first batch of training rays, random cotangents."""
+    import torch.nn.functional as F
+
+    from tpu3d_torch.dense.render import ray_samples
+    from tpu3d_torch.kernels import trilinear as tri
+    from tpu3d_torch.kernels import trilinear_grad as tg
+
+    R, B, S, C = cfg.grid_resolution, cfg.batch_size, cfg.num_samples, 28
+    res = (R, R, R)
+    mn = torch.full((3,), -cfg.scene_scale, device=dev)
+    mx = torch.full((3,), cfg.scene_scale, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    ro, rd = (torch.from_numpy(a[:B]).to(dev) for a in (ds.origins, ds.dirs))
+    pts = ray_samples(ro, rd, cfg.near, cfg.far, S, mn, mx, clip_aabb=True, perturb=True,
+                      generator=g)[0].contiguous()
+    ct = torch.randn((B * S, C), generator=g, device=dev)
+    out = tg.trilinear_scatter_grad(ct, mn, mx, res, pts)
+    ref = tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= 1e-5 * scale:
+        _fail(f"trilinear_grad_kernel: max |err| {err:.3g} > 1e-5 x max|plain| {scale:.3g}")
+    del out
+    ms = _time_ms(torch, lambda: tg.trilinear_scatter_grad(ct, mn, mx, res, pts), 20)
+    buf = torch.zeros((R, R, R, C), device=dev)
+    scatter_ms = _time_ms(torch, lambda: tg.launch_scatter(ct, mn, mx, pts, buf), 20)
+    fill_ms = _time_ms(torch, lambda: buf.zero_(), 20)
+    del buf
+    plain_ms = _time_ms(torch, lambda: tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts), 3)
+    # Library yardstick: the backward of one grid_sample (channels-first copy,
+    # align_corners) with respect to the grid alone; its (x, y, z) order
+    # indexes (W, H, D) = (Z, Y, X). Inside the box it computes this gradient.
+    vol = torch.zeros((1, C, R, R, R), device=dev, requires_grad=True)
+    u = (pts - mn) / (mx - mn) * 2 - 1
+    gs = F.grid_sample(vol, u.flip(-1).reshape(1, 1, 1, -1, 3), mode="bilinear",
+                       align_corners=True)
+    go = ct.T.reshape(1, C, 1, 1, -1).contiguous()
+    lib_ms = _time_ms(torch, lambda: torch.autograd.grad(gs, vol, go, retain_graph=True), 10)
+    lib = torch.autograd.grad(gs, vol, go)[0][0].permute(1, 2, 3, 0)
+    lib_diff = float((lib - ref).abs().max())
+    del vol, gs, go, lib, ref
+    # Bounds, by bytes: the full call writes the whole gradient once (the
+    # fill) and reads the cotangents and the points; the scatter alone reads
+    # those and writes each row the in-box samples touch, once.
+    N = B * S
+    i0, _, inb = tri._corner_setup(res, mn, mx, pts)
+    i0 = i0[inb]
+    base = (i0[:, 0] * R + i0[:, 1]) * R + i0[:, 2]
+    offs = torch.tensor([0, 1, R, R + 1, R * R, R * R + 1, R * R + R, R * R + R + 1], device=dev)
+    rows = torch.unique((base[:, None] + offs).reshape(-1)).numel()
+    in_bytes = 4 * C * N + 12 * N + 24
+    bound_ms = (4 * C * R ** 3 + in_bytes) / H100_BYTES_PER_S * 1e3
+    scatter_bound_ms = (in_bytes + 4 * C * rows) / H100_BYTES_PER_S * 1e3
+    print(f"kernel trilinear_grad_kernel grid {R}^3x{C} N={N} (in box {int(inb.sum())}): "
+          f"max_abs_err={err:.3g} (max|plain| {scale:.3g}, ratio {err / scale:.3g}) "
+          f"ms={ms:.4f} with the zero fill (fill alone {fill_ms:.4f}) scatter_ms={scatter_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} grid_sample_backward_ms={lib_ms:.4f} (max diff "
+          f"{lib_diff:.3g}) bound_ms={bound_ms:.4f} scatter_bound_ms={scatter_bound_ms:.4f} "
+          f"(rows touched {rows})", flush=True)
+    return dict(name="trilinear_grad_kernel", route="cuda",
+                source="tpu3d_torch/csrc/trilinear_grad.cu",
+                replaces="tpu3d/kernels/trilinear_grad.py:157", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
 def _run_dense(torch, dev, scene, root) -> dict:
     """densify_eval_only on the card over the artifacts in ``root``, with the
     launch counts set to 0 just before it and read just after; then each
     held-out view rendered once more for its time, and one view under
     torch.profiler for the device's busy share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tpu3d_torch.cli import densify_eval_only
@@ -496,10 +622,7 @@ def _run_dense(torch, dev, scene, root) -> dict:
         render_view(grid, cams[views[0]], HEIGHT, WIDTH, scene["focal"], cfg, norm,
                     stride=2, chunk=DENSE_CHUNK, bg_sh=bg_sh)
         prof_wall = time.time() - t1
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    per_kernel = _device_ms(prof)
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     mean = float(out["test_psnr"])
@@ -528,6 +651,131 @@ def _run_dense(torch, dev, scene, root) -> dict:
         _fail(f"dense mean PSNR {mean:.4f} dB is not within {MAX_DENSE_PSNR_DIFF_DB} dB of "
               f"tpu3d's {TPU3D_CPU_DENSE_PSNR}")
     return launches
+
+
+def _device_ms(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run (kernels
+    and copies; not the ranges that annotate them, such as an optimizer's
+    step)."""
+    from torch.autograd import DeviceType
+
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return per_kernel
+
+
+def _run_train(torch, dev, scene, root) -> dict:
+    """densify (training) on the card over the artifacts in ``root``, with
+    the launch counts set to 0 just before it and read just after."""
+    from tpu3d_torch.cli import densify
+    from tpu3d_torch.dense.train import LAST_TRAIN_AUX
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+
+    names = [f"img_{i:03d}.png" for i in range(N_VIEWS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    out = densify(root, scene["rgb"], names, scene["focal"], ray_stride=TRAIN_RAY_STRIDE,
+                  no_checkpoint=True, final_grid=True, log_every=TRAIN_LOG_EVERY, device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log, steps = LAST_TRAIN_AUX["log"], LAST_TRAIN_AUX["steps"]
+    at10 = next(e for e in log if e["step"] == TRAIN_LOG_EVERY)
+    rays_s = (log[-1]["step"] - at10["step"]) * 2048 / (log[-1]["seconds"] - at10["seconds"])
+    first, last = log[0]["loss"], log[-1]["loss"]
+    mean = float(out["test_psnr"])
+    n_rays = len(range(0, HEIGHT, 2)) * len(range(0, WIDTH, 2))
+    eval_launches = len(out["test_view_names"]) * -(-n_rays // DENSE_CHUNK)
+    print(f"train: densify {secs:.3f} s (training, grid save and eval); {steps} steps, "
+          f"training {log[-1]['seconds']:.3f} s to the last logged step; {rays_s:.0f} rays/s "
+          f"over steps {at10['step']}-{log[-1]['step']}; loss {first:.5f} (step 0) -> "
+          f"{last:.5f} (step {log[-1]['step']}); views {out['test_view_names']} PSNR "
+          f"{out['test_psnr_per_view']} mean {mean:.4f} dB (tpu3d on the CPU "
+          f"{TPU3D_CPU_TRAIN_PSNR}); peak memory {peak / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    if launches["trilinear_grad_kernel"] != steps:
+        _fail(f"trilinear_grad_kernel launched {launches['trilinear_grad_kernel']} times in "
+              f"{steps} training steps")
+    if launches["trilinear_kernel"] != steps + eval_launches:
+        _fail(f"trilinear_kernel launched {launches['trilinear_kernel']} times, expected "
+              f"{steps} steps + {eval_launches} eval chunks")
+    if not all(np.isfinite([first, last, *out["test_psnr_per_view"]])):
+        _fail(f"train loss or PSNR not finite: {first}, {last}, {out['test_psnr_per_view']}")
+    if not last < first:
+        _fail(f"the last logged loss {last} is not below the first {first}")
+    if not abs(mean - TPU3D_CPU_TRAIN_PSNR) <= MAX_TRAIN_PSNR_DIFF_DB:
+        _fail(f"train mean PSNR {mean:.4f} dB is not within {MAX_TRAIN_PSNR_DIFF_DB} dB of "
+              f"tpu3d's {TPU3D_CPU_TRAIN_PSNR}")
+    return launches
+
+
+def _profile_train_step(torch, dev, cfg, ds) -> None:
+    """Training steps at the train phase's shapes on a fresh 256^3 state:
+    10 timed with CUDA events after 3 warm-ups, then one under
+    torch.profiler, its device time split by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense.grid import create_grid
+    from tpu3d_torch.dense.train import init_state, train_step
+
+    s = cfg.scene_scale
+    B = cfg.batch_size
+    spe = len(ds.origins) // B
+    state = init_state(cfg, create_grid(cfg.grid_resolution, (-s,) * 3, (s,) * 3, device=dev),
+                       spe)
+    o, d, c = (torch.from_numpy(a).to(dev) for a in (ds.origins, ds.dirs, ds.rgb))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def step(i):
+        sl = slice(i % spe * B, (i % spe + 1) * B)
+        return train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen)
+
+    with f32_scope():
+        for i in range(3):
+            step(i)
+        step_ms = _time_ms(torch, lambda: step(3), 10)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        step(1)
+        host_ms = (time.time() - t1) * 1e3     # enqueue only: no sync inside a step
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            step(0)
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+    per_kernel = _device_ms(prof)
+    busy = sum(per_kernel.values())
+    if busy == 0.0:
+        print(f"profile train step: {step_ms:.3f} ms per step (CUDA events), host enqueue "
+              f"{host_ms:.3f} ms; wall {wall:.3f} s; device time not measured (the profiler "
+              "recorded no CUDA activity)", flush=True)
+        return
+    groups = {"trilinear_kernel": 0.0, "trilinear_grad_kernel": 0.0, "fill": 0.0,
+              "adam": 0.0, "other": 0.0}
+    for name, ms in per_kernel.items():
+        low = name.lower()
+        key = ("trilinear_grad_kernel" if "trilinear_grad_kernel" in name
+               else "trilinear_kernel" if "trilinear_kernel" in name
+               else "adam" if "adam" in low
+               else "fill" if "fill" in low or "memset" in low else "other")
+        groups[key] += ms
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile train step: {step_ms:.3f} ms per step (CUDA events, 10 steps), host "
+          f"enqueue {host_ms:.3f} ms per step; one step profiled: wall {wall * 1e3:.1f} ms, device busy {busy:.2f} ms "
+          f"({busy / (wall * 1e3):.1%}); device ms: forward trilinear_kernel "
+          f"{groups['trilinear_kernel']:.3f}, scatter trilinear_grad_kernel "
+          f"{groups['trilinear_grad_kernel']:.3f} + fills {groups['fill']:.3f}, Adam "
+          f"{groups['adam']:.3f}, elementwise and other {groups['other']:.3f}; top kernels: "
+          + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top), flush=True)
 
 
 def _run_stages(torch, scene, cfg, dev, around=None):
@@ -601,7 +849,6 @@ def _profile_slice(torch, dev, scene, cfg) -> None:
     busy time (the sum of kernel and copy times) against the stage's wall
     time, the kernels that take the most of it, and the batched linalg
     operators' device and host time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     profs = {}
@@ -614,10 +861,7 @@ def _profile_slice(torch, dev, scene, cfg) -> None:
 
     secs = _run_stages(torch, scene, cfg, dev, around)[3]
     for name, prof in profs.items():
-        per_kernel = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        per_kernel = _device_ms(prof)
         busy_ms = sum(per_kernel.values())
         if busy_ms == 0.0:
             print(f"profile {name}: wall {secs[name]:.3f} s; device time not measured "
@@ -666,18 +910,24 @@ def main() -> int:
     print(f"scene: {N_VIEWS} views {WIDTH}x{HEIGHT} focal {scene['focal']:.1f} "
           f"rendered in {time.time() - t0:.1f} s", flush=True)
     dense_root = Path(__file__).resolve().parent / "build" / "chip_smoke_dense"
+    train_root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     t0 = time.time()
     dense = make_dense_artifacts(str(dense_root), scene)
+    shutil.rmtree(train_root, ignore_errors=True)
+    make_reconstruction_artifacts(str(train_root), scene)
+    train_cfg, train_ds = _train_inputs(str(train_root), scene)
     print(f"dense artifacts: {DENSE_RES}^3 x 28 analytic grid, band near "
-          f"{dense['meta']['near']:.4f} far {dense['meta']['far']:.4f}, written in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"{dense['meta']['near']:.4f} far {dense['meta']['far']:.4f}; train inputs: "
+          f"{len(train_ds.origins)} rays, band near {train_cfg.near:.4f} far "
+          f"{train_cfg.far:.4f}; written in {time.time() - t0:.1f} s", flush=True)
 
     try:
         with f32_scope():
             print(f"tf32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
                   f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
             kernels = [_check_patch_sample(torch, dev), _check_top2(torch, dev),
-                       _check_trilinear(torch, dev, scene, dense)]
+                       _check_trilinear(torch, dev, scene, dense),
+                       _check_trilinear_grad(torch, dev, train_cfg, train_ds)]
         del dense
         torch.cuda.empty_cache()
 
@@ -685,10 +935,16 @@ def main() -> int:
                                   camera=CameraConfig(focal_length=scene["focal"]))
         launches = _run_slice(torch, dev, scene, cfg)
         _profile_slice(torch, dev, scene, cfg)
-        launches["trilinear_kernel"] = _run_dense(torch, dev, scene,
-                                                  str(dense_root))["trilinear_kernel"]
+        _run_dense(torch, dev, scene, str(dense_root))
+        # The forward and the scatter rows report the train phase, this
+        # slice's path (the dense phase's count is on its own line).
+        train = _run_train(torch, dev, scene, str(train_root))
+        launches.update(trilinear_kernel=train["trilinear_kernel"],
+                        trilinear_grad_kernel=train["trilinear_grad_kernel"])
+        _profile_train_step(torch, dev, train_cfg, train_ds)
     finally:
         shutil.rmtree(dense_root, ignore_errors=True)
+        shutil.rmtree(train_root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

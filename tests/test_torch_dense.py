@@ -444,7 +444,9 @@ def test_render_artifacts_matches_tpu3d(dense_dir, tmp_path):
 
 def test_cli_commands_on_the_cpu(dense_dir, tmp_path, capsys):
     """The argparse commands: densify --eval-only prints dense_result;
-    render writes PNGs; densify without --eval-only refuses."""
+    render writes PNGs; densify without --eval-only trains on a fresh
+    reconstruction and writes tpu3d's dense artifacts, and refuses a
+    training option that is not ported."""
     d, scene = dense_dir
     images = tmp_path / "images"
     images.mkdir()
@@ -460,8 +462,21 @@ def test_cli_commands_on_the_cpu(dense_dir, tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["frames"] == 2 and out["hw"] == [H, W] and not out["dc_only_colors"]
     assert sorted(os.listdir(tmp_path / "renders")) == ["view_0000.png", "view_0002.png"]
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["densify", *common])
+    train = tmp_path / "train"
+    chip_smoke.make_reconstruction_artifacts(str(train), scene)
+    common[3] = str(train)
+    with pytest.raises(NotImplementedError, match="occupancy.*7c"):
+        main(["densify", *common, "--occupancy"])
+    main(["densify", *common, "--grid-resolution", "16", "--ray-stride", "8",
+          "--num-samples", "16", "--quiet"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["test_view_names"] == ["img_004.png"] and np.isfinite(out["test_psnr"])
+    assert out["recipe"]["grid_resolution"] == 16
+    store = ArtifactStore(str(train))
+    assert store.load("dense_grid")["grid"].shape == (16, 16, 16, 28)
+    assert store.load("mesh_grid")["grid"].dtype == np.float16
+    assert store.load_json("dense_meta")["num_samples"] == 16 and store.has("dense_ckpt")
+    assert (train / "test_render0.png").exists() and (train / "test_gt0.png").exists()
 
 
 @pytest.fixture

@@ -141,6 +141,87 @@ def test_trilinear_kernel_equals_plain(cuda, gen, C):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("C", [28, 3])
+def test_trilinear_grad_kernel_matches_plain(cuda, gen, C):
+    """The scatter against its plain version: points inside, outside and on
+    the box, and 1,500 in one cell (the conflict-heavy case), on the float4
+    path (C = 28) and the scalar one (C = 3). Atomics sum in no fixed order:
+    within 1e-5 x max|plain|, 1e-4 for the cluster, as tpu3d's tests allow
+    between its scatter and XLA's autodiff."""
+    from tpu3d_torch.kernels.trilinear_grad import (trilinear_scatter_grad,
+                                                    trilinear_scatter_grad_plain)
+
+    res = (8, 16, 16)
+    mn = torch.full((3,), -1.0, device=cuda)
+    mx = torch.full((3,), 1.0, device=cuda)
+    spread = torch.rand((700, 3), generator=gen, device=cuda) * 2.6 - 1.3
+    spread[:5] = torch.tensor([[-1, -1, -1], [1, 1, 1], [0, 1, -1], [1, 0, 0], [-1, 1, 1.0]],
+                              device=cuda)
+    cluster = torch.tensor([0.1, 0.2, -0.3], device=cuda) + (
+        torch.rand((1500, 3), generator=gen, device=cuda) * 0.04 - 0.02)
+    for pts, rel in ((spread, 1e-5), (cluster, 1e-4)):
+        g = torch.randn((len(pts), C), generator=gen, device=cuda)
+        before = LAUNCHES["trilinear_grad_kernel"]
+        got = trilinear_scatter_grad(g, mn, mx, res, pts.contiguous())
+        torch.cuda.synchronize()
+        assert LAUNCHES["trilinear_grad_kernel"] == before + 1
+        ref = trilinear_scatter_grad_plain(g, mn, mx, res, pts)
+        assert got.shape == ref.shape == (*res, C)
+        assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("hierarchical", [False, True])
+def test_train_step_on_the_card(cuda, gen, hierarchical):
+    """One training step with every in-slice prior and latent on, through
+    both kernels on the card, against the same step on the CPU (plain
+    versions) with the same injected random numbers. The gradient (Adam's
+    moments) and the latents agree within 1e-5 x their size (the scatter's
+    atomics and the card's exp/log round differently; 2e-5 for the squared
+    moment, as a square doubles a relative error). The grid within 5e-4,
+    tpu3d's tolerance between its two routes: Adam's first step moves a
+    voxel by lr g / (|g| + 1e-8), so where |g| is near 1e-8 a rounding-sized
+    change of g moves the voxel by a share of lr (measured on an H100: one
+    voxel of 114,688 by 1.7e-5)."""
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    cfg = DenseConfig(grid_resolution=16, batch_size=256, num_samples=16, near=0.5, far=4.0,
+                      n_coarse=8, n_fine=8, hierarchical=hierarchical, tv_sigma=0.3,
+                      tv_sh=0.05, sparsity_sigma=0.02, exposure=True, sh_background=True)
+    grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
+    grid[..., 0] = torch.randn((16, 16, 16), generator=gen, device=cuda) * 2.0
+    o = torch.zeros((256, 3), device=cuda)
+    o[:, 0] = -2.0
+    d = torch.nn.functional.normalize(torch.randn((256, 3), generator=gen, device=cuda) * 0.4
+                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
+    rgb = torch.rand((256, 3), generator=gen, device=cuda)
+    cid = torch.randint(0, 4, (256,), generator=gen, device=cuda)
+    noise = TT.draw_step_noise(cfg, grid.shape, 256, gen, cuda)
+    states, losses = [], []
+    before = (LAUNCHES["trilinear_kernel"], LAUNCHES["trilinear_grad_kernel"])
+    for dev in (cuda, torch.device("cpu")):
+        st = TT.init_state(cfg, VoxelGrid(grid.clone().to(dev), torch.full((3,), -1.5, device=dev),
+                                          torch.full((3,), 1.5, device=dev)), 5, 4)
+        losses.append(float(TT.train_step(st, cfg, o.to(dev), d.to(dev), rgb.to(dev),
+                                          cid.to(dev),
+                                          noise=TT.StepNoise(*(None if x is None else x.to(dev)
+                                                               for x in noise)))))
+        states.append(st)
+    assert LAUNCHES["trilinear_kernel"] == before[0] + (2 if hierarchical else 1)
+    assert LAUNCHES["trilinear_grad_kernel"] == before[1] + 1
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    (a, b) = states
+    pa, pb = a.grid.grid, b.grid.grid
+    pairs = [(pa, pb), (a.optimizer.state[pa]["exp_avg"], b.optimizer.state[pb]["exp_avg"]),
+             (a.optimizer.state[pa]["exp_avg_sq"], b.optimizer.state[pb]["exp_avg_sq"]),
+             (a.exposure, b.exposure), (a.background, b.background)]
+    for k, ((x, y), tol) in enumerate(zip(pairs, (None, 1e-5, 2e-5, 1e-5, 1e-5))):
+        diff = (x.detach().cpu() - y.detach()).abs().max().item()
+        assert diff <= (5e-4 if tol is None else tol * y.detach().abs().max().item()), (k, diff)
+    assert (pa.detach().cpu() - grid.cpu()).abs().max().item() > 1e-3
+
+
 def test_render_image_on_the_card(cuda, gen):
     """render_image through the kernel against the same render on the CPU."""
     from tpu3d_torch.dense.grid import VoxelGrid

@@ -17,6 +17,7 @@ from tpu3d_torch.config import PipelineConfig
 from tpu3d_torch.features.frontend import extract_features
 from tpu3d_torch.kernels.distance import descriptor_top2
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches
+from tpu3d_torch.kernels.trilinear_grad import trilinear_scatter_grad
 from tpu3d_torch.sfm import pipeline as TP
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,6 +76,10 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty((1, 4, 8), device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
         descriptor_top2(q, q, torch.empty((1, 4), device=meta), torch.empty((1, 4), device=meta))
+    b = torch.empty(3, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trilinear_scatter_grad(torch.empty((5, 28), device=meta), b, b, (4, 4, 4),
+                               torch.empty((5, 3), device=meta))
 
 
 def test_fused_descriptor_is_not_ported():

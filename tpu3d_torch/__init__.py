@@ -9,9 +9,9 @@ copies here.
 Every entry point takes ``device="cuda"`` and runs on the card unless the
 caller passes ``device="cpu"``; asking for the card where there is none
 raises. The kernels of the ported paths (extract → retrieve → match, and the
-dense stage's render/eval) are CUDA C++ (``csrc/``), built at first use; on a
-CPU tensor their wrappers use the plain PyTorch version of the same
-function.
+dense stage's training and render/eval) are CUDA C++ (``csrc/``), built at
+first use; on a CPU tensor their wrappers use the plain PyTorch version of
+the same function.
 """
 from __future__ import annotations
 

@@ -10,9 +10,8 @@
 // reading channel c of the 8 corner rows (each read one contiguous row of
 // C floats across the warp), lerping, and writing channel c of the output.
 // The sample's coordinates are computed once, as one instruction stream of
-// the warp, in tpu3d's _corner_setup order (dense/grid.py:74-83):
-//   u = (p - min) / (max - min), in = all(0 <= u <= 1), v = u * (res - 1),
-//   i0 = clip(floor v, 0, res - 2), f = v - i0.
+// the warp, by corner_setup (trilinear_common.cuh, shared with the
+// backward in trilinear_grad.cu).
 // The lerp follows _lerp8 (z, then y, then x; grid.py:86-95) with every
 // product and sum rounded on its own (__fmul_rn / __fadd_rn, no FMA
 // contraction) and an IEEE division, so the kernel and the plain PyTorch
@@ -31,12 +30,11 @@
 // with a padded output, 14% more of the output bytes that dominate the
 // bound; and the unpadded layout is tpu3d's artifact layout, so a loaded
 // grid needs no copy. Four of 32 lanes idle at C = 28.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trilinear_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using tpu3d::kWarpsPerBlock;
 
 __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
   // a * (1 - f) + b * f, each operation rounded (tpu3d's _lerp8 order)
@@ -53,28 +51,14 @@ trilinear_kernel(const float* __restrict__ grid,
   const int lane = threadIdx.x & 31;
   const int64_t n = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (n >= N) return;
-  const int res[3] = {X, Y, Z};
-  int i0[3];
-  float f[3];
-  bool inside = true;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float lo = __ldg(min_bound + a);
-    const float hi = __ldg(max_bound + a);
-    const float u = __fdiv_rn(__fsub_rn(__ldg(pts + 3 * n + a), lo), __fsub_rn(hi, lo));
-    inside = inside && (u >= 0.0f) && (u <= 1.0f);
-    const float v = __fmul_rn(u, (float)(res[a] - 1));
-    // clipped in float before the cast, as the plain version does
-    const float b = fminf(fmaxf(floorf(v), 0.0f), (float)(res[a] - 2));
-    i0[a] = (int)b;
-    f[a] = __fsub_rn(v, b);
-  }
+  const tpu3d::Corner cs = tpu3d::corner_setup(min_bound, max_bound, pts + 3 * n, X, Y, Z);
+  const bool inside = cs.inside;
   if (lane == 0) in_bounds[n] = inside ? 1 : 0;
   if (lane >= C) return;
   const int64_t dz = C;
   const int64_t dy = (int64_t)Z * C;
   const int64_t dx = (int64_t)Y * Z * C;
-  const float* p = grid + (((int64_t)i0[0] * Y + i0[1]) * Z + i0[2]) * C + lane;
+  const float* p = grid + cs.base * C + lane;
   const float c000 = __ldg(p);
   const float c001 = __ldg(p + dz);
   const float c010 = __ldg(p + dy);
@@ -83,13 +67,13 @@ trilinear_kernel(const float* __restrict__ grid,
   const float c101 = __ldg(p + dx + dz);
   const float c110 = __ldg(p + dx + dy);
   const float c111 = __ldg(p + dx + dy + dz);
-  const float c00 = lerp_rn(c000, c001, f[2]);
-  const float c01 = lerp_rn(c010, c011, f[2]);
-  const float c10 = lerp_rn(c100, c101, f[2]);
-  const float c11 = lerp_rn(c110, c111, f[2]);
-  const float c0 = lerp_rn(c00, c01, f[1]);
-  const float c1 = lerp_rn(c10, c11, f[1]);
-  const float v = lerp_rn(c0, c1, f[0]);
+  const float c00 = lerp_rn(c000, c001, cs.f[2]);
+  const float c01 = lerp_rn(c010, c011, cs.f[2]);
+  const float c10 = lerp_rn(c100, c101, cs.f[2]);
+  const float c11 = lerp_rn(c110, c111, cs.f[2]);
+  const float c0 = lerp_rn(c00, c01, cs.f[1]);
+  const float c1 = lerp_rn(c10, c11, cs.f[1]);
+  const float v = lerp_rn(c0, c1, cs.f[0]);
   out[n * C + lane] = __fmul_rn(v, inside ? 1.0f : 0.0f);
 }
 

@@ -17,7 +17,7 @@ from tpu3d_torch.kernels import trilinear as _tri
 from tpu3d_torch.kernels.trilinear import trilinear_sample_plain as trilinear_sample
 
 __all__ = ["VoxelGrid", "create_grid", "trilinear_sample", "eval_sh", "query",
-           "grid_from_tpu3d", "grid_from_mesh_grid", "unpack_grid"]
+           "grid_from_tpu3d", "grid_from_mesh_grid", "grid_tensor", "unpack_grid"]
 
 CHANNELS = 28          # 1 density + 3 colours x 9 SH coefficients
 # tpu3d's packed layout (tpu3d/kernels/trilinear.py:40-65): rows of 8
@@ -88,6 +88,21 @@ def unpack_grid(packed: np.ndarray, shape) -> np.ndarray:
     return g[:, :, :Z, :C]
 
 
+def grid_tensor(g: np.ndarray, device, channels: int = CHANNELS) -> torch.Tensor:
+    """A grid-shaped array of tpu3d's -- a grid or one of its Adam moments,
+    in the (X, Y, Z, C) layout or the packed (X, Y, Z/8 + 1, 2, 128) one
+    (then ``channels`` is C) -- as a contiguous (X, Y, Z, C) f32 tensor on
+    ``device``."""
+    g = np.asarray(g)
+    if g.ndim == 5 and g.shape[3:] == (2, ZROW * CPAD // 2):
+        X, Y, zr = g.shape[:3]
+        g = unpack_grid(g, (X, Y, (zr - 1) * ZROW, channels))
+    elif g.ndim != 4:
+        raise ValueError(f"grid of shape {g.shape} is neither (X, Y, Z, C) nor "
+                         "tpu3d's packed (X, Y, Z/8+1, 2, 128)")
+    return torch.from_numpy(np.ascontiguousarray(g, dtype=np.float32)).to(device)
+
+
 def grid_from_tpu3d(arrays: Dict[str, np.ndarray], device,
                     channels: int = CHANNELS
                     ) -> Tuple[VoxelGrid, Optional[torch.Tensor]]:
@@ -95,14 +110,7 @@ def grid_from_tpu3d(arrays: Dict[str, np.ndarray], device,
     (VoxelGrid, bg_sh or None) on ``device``. ``grid`` is tpu3d's
     (X, Y, Z, C) array or its packed (X, Y, Z/8 + 1, 2, 128) layout (then
     ``channels`` is C); ``bg_sh`` is the learned (3, 9) background SH."""
-    g = np.asarray(arrays["grid"])
-    if g.ndim == 5 and g.shape[3:] == (2, ZROW * CPAD // 2):
-        X, Y, zr = g.shape[:3]
-        g = unpack_grid(g, (X, Y, (zr - 1) * ZROW, channels))
-    elif g.ndim != 4:
-        raise ValueError(f"grid_from_tpu3d: grid of shape {g.shape} is neither "
-                         "(X, Y, Z, C) nor tpu3d's packed (X, Y, Z/8+1, 2, 128)")
-    grid = torch.from_numpy(np.ascontiguousarray(g, dtype=np.float32)).to(device)
+    grid = grid_tensor(arrays["grid"], device, channels)
 
     def vec(name):
         return torch.as_tensor(np.asarray(arrays[name], np.float32), device=device)

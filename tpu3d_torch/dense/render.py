@@ -1,11 +1,13 @@
-"""Volume rendering of a trained voxel grid (tpu3d/dense/render.py), forward
-only: the render/eval path.
+"""Volume rendering of a voxel grid (tpu3d/dense/render.py).
 
 alpha = 1 - exp(-sigma * delta); transmittance = shifted cumprod(1 - alpha);
-pixel = sum(w * c) + (1 - sum(w)) * background. tpu3d's two forward routes
-(``render_rays`` through the XLA gather and ``render_rays_packed`` through
-the Pallas sampler) are one function here, ``render_rays``, which samples
-through ``kernels/trilinear.py`` and so launches the CUDA kernel on the card.
+pixel = sum(w * c) + (1 - sum(w)) * background. tpu3d's forward routes
+(``render_rays`` through the XLA gather, ``render_rays_packed`` through the
+Pallas sampler) and its training routes (``render_rays`` under autodiff,
+``render_rays_packed_diff``) are one function here, ``render_rays``: it
+samples through ``kernels/trilinear.py`` (the CUDA kernel on the card) and,
+when the grid requires grad, through ``kernels/trilinear_grad.py``'s
+autograd Function, whose backward is the CUDA scatter kernel.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import torch
 
 from tpu3d_torch.dense.contract import contract as contract_pts
 from tpu3d_torch.dense.grid import VoxelGrid, eval_sh
-from tpu3d_torch.dense.sdf import linspace01, ray_aabb, sample_stratified
+from tpu3d_torch.dense.sdf import linspace01, ray_aabb, sample_pdf, sample_stratified
 from tpu3d_torch.kernels.trilinear import trilinear_sample
+from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
 
 # Euclidean reach of the background disparity tail under contraction
 # (normalized units, scene core ~1).
@@ -45,29 +48,26 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
     return c
 
 
-def _sample_z(t_near, t_far, n_samples, bg_far=None):
-    """Stratified depths; with ``bg_far`` (contraction) a quarter of the
-    budget is a tail uniform in disparity from t_far out to
-    max(bg_far, 1.05 t_far). Occupancy-guided sampling comes with dense
-    training (dense/occupancy.py)."""
+def _sample_z(t_near, t_far, n_samples, bg_far=None, perturb=False, generator=None, u=None):
+    """Stratified depths (jittered with ``perturb``, from ``generator`` or
+    the uniforms ``u``); with ``bg_far`` (contraction) a quarter of the
+    budget is a tail uniform in disparity from t_far out to max(bg_far,
+    1.05 t_far), and ``u`` covers the stratified part only. Occupancy-guided
+    sampling (dense/occupancy.py) is not ported (ROADMAP Queue 1 item 7c)."""
     if bg_far is None:
-        return sample_stratified(t_near, t_far, n_samples)
+        return sample_stratified(t_near, t_far, n_samples, perturb, generator, u)
     n_bg = n_samples // 4
-    z_fg = sample_stratified(t_near, t_far, n_samples - n_bg)
-    u = linspace01(n_bg + 1, t_near.device)[1:]
+    z_fg = sample_stratified(t_near, t_far, n_samples - n_bg, perturb, generator, u)
+    s = linspace01(n_bg + 1, t_near.device)[1:]
     bg_end = torch.clamp(t_far * 1.05, min=bg_far)
-    inv = (1.0 / torch.clamp(t_far, min=1e-6))[:, None] * (1.0 - u)[None, :] \
-        + (1.0 / bg_end)[:, None] * u[None, :]
+    inv = (1.0 / torch.clamp(t_far, min=1e-6))[:, None] * (1.0 - s)[None, :] \
+        + (1.0 / bg_end)[:, None] * s[None, :]
     return torch.cat([z_fg, 1.0 / inv], dim=-1)
 
 
-def ray_samples(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float,
-                n_samples: int, min_bound: torch.Tensor, max_bound: torch.Tensor,
-                clip_aabb: bool = False, contract: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sample positions along rays: (pts (N*S, 3), dirs (N*S, 3), z (N, S)).
-    clip_aabb intersects each ray's [near, far] band with the box;
-    contract warps the positions (not the depths)."""
+def _band(rays_o, rays_d, near, far, min_bound, max_bound, clip_aabb):
+    """Per-ray (t_near, t_far): [near, far], intersected with the box when
+    clip_aabb."""
     n = rays_o.shape[0]
     t_near = torch.full((n,), near, dtype=rays_o.dtype, device=rays_o.device)
     t_far = torch.full((n,), far, dtype=rays_o.dtype, device=rays_o.device)
@@ -76,38 +76,107 @@ def ray_samples(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: fl
         t_near = torch.where(valid, torch.maximum(t_near, t0), t_near)
         t_far = torch.where(valid, torch.minimum(torch.maximum(t1, t_near + 1e-4), t_far),
                             t_near + 1e-4)
-    z = _sample_z(t_near, t_far, n_samples, bg_far=_CONTRACT_BG_FAR if contract else None)
+    return t_near, t_far
+
+
+def _points(rays_o, rays_d, z, contract):
     pts = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
     if contract:
         pts = contract_pts(pts)
     dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
-    return pts.reshape(-1, 3), dirs, z
+    return pts.reshape(-1, 3), dirs
+
+
+def ray_samples(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float,
+                n_samples: int, min_bound: torch.Tensor, max_bound: torch.Tensor,
+                clip_aabb: bool = False, contract: bool = False, perturb: bool = False,
+                generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sample positions along rays: (pts (N*S, 3), dirs (N*S, 3), z (N, S)).
+    clip_aabb intersects each ray's [near, far] band with the box;
+    contract warps the positions (not the depths); perturb jitters the
+    depths (see :func:`_sample_z`)."""
+    t_near, t_far = _band(rays_o, rays_d, near, far, min_bound, max_bound, clip_aabb)
+    z = _sample_z(t_near, t_far, n_samples, _CONTRACT_BG_FAR if contract else None,
+                  perturb, generator, u)
+    pts, dirs = _points(rays_o, rays_d, z, contract)
+    return pts, dirs, z
+
+
+def _shade(vals, in_b, dirs):
+    """(sigma, rgb) from the raw channels: relu density, degree-2 SH
+    colour, both zero outside the box."""
+    sigma = torch.relu(vals[:, 0]) * in_b
+    rgb = eval_sh(vals[:, 1:28].reshape(-1, 3, 9), dirs) * in_b[:, None]
+    return sigma, rgb
+
+
+def _sample(vg: VoxelGrid, pts: torch.Tensor):
+    """Forward-only samples, or differentiable ones when the grid requires
+    grad (the training step)."""
+    fn = trilinear_sample_diff if vg.grid.requires_grad else trilinear_sample
+    return fn(vg.grid, vg.min_bound, vg.max_bound, pts)
 
 
 def render_rays(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 near: float, far: float, n_samples: int = 192, white_bg: bool = True,
                 clip_aabb: bool = False, bg: Optional[torch.Tensor] = None,
-                contract: bool = False, base_vg: Optional[VoxelGrid] = None) -> torch.Tensor:
-    """(N, 3) colours of rays through the grid at stratified depths.
+                contract: bool = False, base_vg: Optional[VoxelGrid] = None,
+                perturb: bool = False, generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, 3) colours of rays through the grid at stratified depths,
+    jittered with ``perturb`` (training) from ``generator`` or the (N,
+    n_samples) uniforms ``u``.
 
     base_vg: optional frozen cascade base grid; ``vg`` is then the detail
     layer: depths and clipping follow the base's box, the base's raw
     channels are added before the activations, and the detail grid counts
-    only inside its own box."""
+    only inside its own box. The base is sampled forward-only and gets no
+    gradient."""
     n = rays_o.shape[0]
     rb = base_vg if base_vg is not None else vg
     pts, dirs, z = ray_samples(rays_o, rays_d, near, far, n_samples, rb.min_bound,
-                               rb.max_bound, clip_aabb, contract)
-    vals, in_b = trilinear_sample(vg.grid, vg.min_bound, vg.max_bound, pts)
+                               rb.max_bound, clip_aabb, contract, perturb, generator, u)
+    vals, in_b = _sample(vg, pts)
     if base_vg is not None:
-        bvals, bin_b = trilinear_sample(base_vg.grid, base_vg.min_bound,
+        bvals, bin_b = trilinear_sample(base_vg.grid.detach(), base_vg.min_bound,
                                         base_vg.max_bound, pts)
         vals = bvals * bin_b[:, None] + vals * in_b[:, None]
         in_b = torch.ones_like(in_b)
-    sigma = torch.relu(vals[:, 0]) * in_b
-    rgb = eval_sh(vals[:, 1:28].reshape(-1, 3, 9), dirs) * in_b[:, None]
+    sigma, rgb = _shade(vals, in_b, dirs)
     return composite(sigma.reshape(n, n_samples), rgb.reshape(n, n_samples, 3), z,
                      white_bg, bg)
+
+
+def render_rays_hierarchical(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                             near: float, far: float, n_coarse: int = 64, n_fine: int = 64,
+                             white_bg: bool = True, clip_aabb: bool = False,
+                             bg: Optional[torch.Tensor] = None, perturb: bool = True,
+                             generator: Optional[torch.Generator] = None,
+                             u_coarse: Optional[torch.Tensor] = None,
+                             u_fine: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Two-pass (coarse -> fine) rendering, as tpu3d's
+    render_rays_hierarchical_packed (render.py:390-463). The coarse pass
+    samples the full grid forward-only at ``n_coarse`` stratified depths
+    (uniforms ``u_coarse``) and keeps the density; its compositing weights,
+    without gradient, place ``n_fine`` importance samples (uniforms
+    ``u_fine``); the fine pass reads the grid at the merged, sorted depths,
+    with the grid gradient when the grid requires grad."""
+    n = rays_o.shape[0]
+    t_near, t_far = _band(rays_o, rays_d, near, far, vg.min_bound, vg.max_bound, clip_aabb)
+    z_c = sample_stratified(t_near, t_far, n_coarse, perturb, generator, u_coarse)
+    with torch.no_grad():
+        pts_c, _ = _points(rays_o, rays_d, z_c, False)
+        vals_c, in_c = trilinear_sample(vg.grid, vg.min_bound, vg.max_bound, pts_c)
+        sigma_c = (torch.relu(vals_c[:, 0]) * in_c).reshape(n, n_coarse)
+        w = composite_weights(sigma_c, z_c)
+    z_f = sample_pdf(z_c, w, n_fine, generator=generator, u=u_fine)
+    z = torch.sort(torch.cat([z_c, z_f], dim=-1), dim=-1).values
+    pts, dirs = _points(rays_o, rays_d, z, False)
+    sigma, rgb = _shade(*_sample(vg, pts), dirs)
+    S = n_coarse + n_fine
+    return composite(sigma.reshape(n, S), rgb.reshape(n, S, 3), z, white_bg, bg)
 
 
 def render_image(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -121,8 +190,8 @@ def render_image(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
     transmittance in place of white."""
     if occ_prune:
         raise NotImplementedError(
-            "occupancy-pruned rendering needs dense/occupancy.py, which the "
-            "port takes over with dense training")
+            "tpu3d_torch: occupancy-pruned rendering needs dense/occupancy.py, "
+            "which is not ported yet (ROADMAP Queue 1 item 7c)")
     outs = []
     for s in range(0, rays_o.shape[0], chunk):
         rd = rays_d[s:s + chunk]

@@ -1,9 +1,13 @@
-"""Ray samplers of the dense stage (tpu3d/dense/sdf.py:46,58): the ray-box
-slab test and stratified depths. Importance sampling and the SDF grid come
-with dense training."""
+"""Ray samplers of the dense stage (tpu3d/dense/sdf.py:46-101): the ray-box
+slab test, stratified depths (jittered for training) and inverse-CDF
+importance sampling. The SDF grid comes with the SDF model.
+
+The jitter is drawn from a ``torch.Generator`` or given as uniforms ``u``,
+as tpu3d's own ``u`` parameter allows; tests pass tpu3d's draws there,
+which torch cannot reproduce."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,9 +35,55 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     return t
 
 
-def sample_stratified(t_near: torch.Tensor, t_far: torch.Tensor, n: int) -> torch.Tensor:
-    """Uniform depths (N, n) over [t_near, t_far]: tpu3d's sample_stratified
-    with perturb=False, the eval path's sampling (the jittered training
-    draw comes with dense training)."""
+def _uniform(shape, like: torch.Tensor, generator: Optional[torch.Generator],
+             u: Optional[torch.Tensor]) -> torch.Tensor:
+    if u is not None:
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"injected uniforms of shape {tuple(u.shape)}, expected {shape}")
+        return u
+    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def sample_stratified(t_near: torch.Tensor, t_far: torch.Tensor, n: int,
+                      perturb: bool = False, generator: Optional[torch.Generator] = None,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depths (N, n) over [t_near, t_far]: uniform, or with ``perturb``
+    one draw inside each stratum (ref sdf.py:167-180). u: (N, n) uniforms
+    in [0, 1) to use instead of drawing from ``generator``."""
     t = linspace01(n, t_near.device)
-    return t_near[:, None] * (1 - t)[None, :] + t_far[:, None] * t[None, :]
+    z = t_near[:, None] * (1 - t)[None, :] + t_far[:, None] * t[None, :]
+    if perturb:
+        mids = 0.5 * (z[:, 1:] + z[:, :-1])
+        upper = torch.cat([mids, z[:, -1:]], dim=-1)
+        lower = torch.cat([z[:, :1], mids], dim=-1)
+        z = lower + (upper - lower) * _uniform(z.shape, z, generator, u)
+    return z
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               det: bool = False, generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF importance sampling (NeRF hierarchical sampling; ref
+    sdf.py:188-218): (N, n_samples) depths distributed as ``weights`` over
+    the (N, B) ``bins``. det takes evenly spaced quantiles; u: (N,
+    n_samples) uniforms to use instead of drawing from ``generator``."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)      # (N, B+1)
+    bins_pad = torch.cat([bins[..., :1], bins], dim=-1)                 # (N, B+1)
+    shape = (*cdf.shape[:-1], n_samples)
+    if det:
+        u = linspace01(n_samples, cdf.device).expand(shape)
+    else:
+        u = _uniform(shape, cdf, generator, u)
+    idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(idx - 1, min=0)
+    above = torch.clamp(idx, max=cdf.shape[-1] - 1)
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    bin_b = torch.gather(bins_pad, -1, below)
+    bin_a = torch.gather(bins_pad, -1, above)
+    denom = torch.where(cdf_a - cdf_b < 1e-5, torch.ones_like(cdf_a), cdf_a - cdf_b)
+    t = (u - cdf_b) / denom
+    return bin_b + t * (bin_a - bin_b)

@@ -1,15 +1,31 @@
-"""Host-side part of the dense stage's training module (tpu3d/dense/train.py):
-ray datasets from registered cameras, the scene normalizations, the
-scene-derived sampling band and PSNR. All numpy. The optimizer, the train
-steps and ``train_plenoxel`` come with dense training."""
+"""Dense-stage training (tpu3d/dense/train.py): ray datasets from
+registered cameras, the scene normalizations and the scene-derived sampling
+band (numpy, on the host), and plenoxel training of the voxel grid on the
+device: the lr schedule, the grid optimizers, the per-image exposure and
+SH-background latents, the stochastic TV and sparsity priors, one training
+step and ``train_plenoxel``, with tpu3d's ``dense_ckpt`` checkpoints.
+
+tpu3d has two step routes, ``make_train_step`` (XLA autodiff through the
+gather) and ``make_train_step_packed`` (the Pallas kernel pair); here
+``train_step`` is one step whose backward runs through
+kernels/trilinear_grad.py (the CUDA scatter kernel on the card). Random
+draws (the depth jitter, the epoch permutation, the crop origins) come from
+a ``torch.Generator``; tests inject tpu3d's draws instead (``StepNoise``).
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
+from tpu3d_torch import f32_scope, resolve_device
+from tpu3d_torch.config import DenseConfig
 from tpu3d_torch.core import lie
+from tpu3d_torch.dense.grid import VoxelGrid, create_grid, eval_sh, grid_tensor
+from tpu3d_torch.dense.render import render_rays, render_rays_hierarchical
 from tpu3d_torch.io.ply import filter_point_cloud
 
 
@@ -137,3 +153,392 @@ def auto_near_far(cams: np.ndarray, points: np.ndarray,
 def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
     mse = float(np.mean((pred - gt) ** 2))
     return -10.0 * np.log10(mse + 1e-12)
+
+
+# Aux outputs of the last train_plenoxel call, as tpu3d's: the learned
+# background SH coefficients, the exposure gains and the cameras dropped by
+# the camera gate (none: the gate is not ported), plus the logged losses
+# with their wall times ("log") and the step count ("steps").
+LAST_TRAIN_AUX: Dict[str, object] = {}
+
+# Training options the port does not have yet (ROADMAP Queue 1 item 7c).
+_NOT_PORTED = (("occupancy_prune", "occupancy-guided sampling (--occupancy)"),
+               ("contraction", "the contraction warp in training (--contraction)"),
+               ("coarse_epochs", "coarse-to-fine training (--coarse-epochs)"),
+               ("camera_gate", "the camera gate (--camera-gate)"))
+
+
+def _refuse_unported(cfg: DenseConfig) -> None:
+    """Raise NotImplementedError for a training option that is not ported."""
+    for field, what in _NOT_PORTED:
+        if getattr(cfg, field):
+            raise NotImplementedError(f"tpu3d_torch: {what} is not ported yet "
+                                      "(ROADMAP Queue 1 item 7c)")
+
+
+def _lr_schedule(cfg: DenseConfig, steps_per_epoch: int) -> Callable[[int], float]:
+    """optax.piecewise_constant_schedule(lr, {m * steps_per_epoch: gamma}):
+    the lr of update k (0-based) is lr * gamma^#{m : m * steps_per_epoch <= k}."""
+    boundaries = {m * steps_per_epoch: cfg.lr_gamma for m in cfg.lr_milestones}
+
+    def lr(count: int) -> float:
+        v = cfg.learning_rate
+        for b, scale in sorted(boundaries.items()):
+            if count >= b:
+                v *= scale
+        return v
+
+    return lr
+
+
+class RMSprop(torch.optim.Optimizer):
+    """optax.rmsprop(lr, decay, eps) as optax 0.2.6 computes it:
+    nu <- (1 - decay) g^2 + decay nu from nu = 0, then p <- p - lr g / sqrt(nu
+    + eps), eps INSIDE the root. torch.optim.RMSprop adds eps outside the
+    root, which is another optimizer where nu is near 0."""
+
+    def __init__(self, params, lr: float = 1e-2, decay: float = 0.95, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            d = group["decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if "nu" not in st:
+                    st["nu"] = torch.zeros_like(p)
+                g = p.grad
+                st["nu"] = (1 - d) * (g * g) + d * st["nu"]
+                p.add_(torch.rsqrt(st["nu"] + group["eps"]) * g, alpha=-group["lr"])
+
+
+def make_optimizer(cfg: DenseConfig, grid: torch.Tensor) -> torch.optim.Optimizer:
+    """The grid optimizer: Adam (betas 0.9/0.999, eps 1e-8 outside the root,
+    as optax.adam: the same update m_hat / (sqrt(v_hat) + eps)), fused into
+    one kernel, or with cfg.optimizer == "rmsprop" optax's rmsprop
+    (:class:`RMSprop`). Both update the whole grid every step, as optax's:
+    a voxel with zero gradient still moves under Adam's momentum. The lr
+    is set each step from the schedule (TrainState.lr)."""
+    if cfg.optimizer == "rmsprop":
+        return RMSprop([grid], lr=cfg.learning_rate, decay=0.95, eps=1e-8)
+    return torch.optim.Adam([grid], lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            fused=True)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training step reads and updates (in place: the grid and its
+    moments are updated where they lie, as tpu3d donates its state)."""
+    grid: VoxelGrid                       # grid.grid: the trained leaf
+    optimizer: torch.optim.Optimizer
+    lr: Callable[[int], float]            # the schedule, by update count
+    step: int = 0
+    # Per-image exposure latents (3, M, 3) = [log-gains, Adam m, Adam v].
+    exposure: Optional[torch.Tensor] = None
+    # View-directional background SH (3, 3, 9) = [coeffs, Adam m, Adam v].
+    background: Optional[torch.Tensor] = None
+
+
+def init_exposure(n_cams: int, device="cpu") -> torch.Tensor:
+    return torch.zeros((3, n_cams, 3), dtype=torch.float32, device=device)
+
+
+def init_background(device="cpu") -> torch.Tensor:
+    """(3, 3, 9) [coeffs, m, v], the coefficients white (DC 1/C0), so that
+    training starts at the white-background behaviour."""
+    g = torch.zeros((3, 9), dtype=torch.float32, device=device)
+    g[:, 0] = 1.0 / 0.282095
+    return torch.stack([g, torch.zeros_like(g), torch.zeros_like(g)])
+
+
+def init_state(cfg: DenseConfig, grid: VoxelGrid, steps_per_epoch: int,
+               n_cams: Optional[int] = None) -> TrainState:
+    """A fresh TrainState that trains ``grid``'s storage in place, with the
+    exposure latents for ``n_cams`` cameras when cfg.exposure and the
+    background when cfg.sh_background."""
+    g = grid.grid.detach().requires_grad_()
+    dev = g.device
+    return TrainState(
+        VoxelGrid(g, grid.min_bound, grid.max_bound), make_optimizer(cfg, g),
+        _lr_schedule(cfg, steps_per_epoch), 0,
+        init_exposure(n_cams, dev) if cfg.exposure and n_cams is not None else None,
+        init_background(dev) if cfg.sh_background else None)
+
+
+def _ray_background(bg_sh: Optional[torch.Tensor], rd: torch.Tensor) -> Optional[torch.Tensor]:
+    """Per-ray background colours from (3, 9) SH coefficients."""
+    if bg_sh is None:
+        return None
+    return eval_sh(bg_sh.expand(rd.shape[0], 3, 9), rd)
+
+
+def _exposure_apply(pred: torch.Tensor, gains: Optional[torch.Tensor],
+                    cid: Optional[torch.Tensor]) -> torch.Tensor:
+    """pred * e^{gains[cid]}: the grid's colours in each photograph's
+    exposure. gains: (M, 3) log-gains."""
+    if gains is None or cid is None:
+        return pred
+    return pred * torch.exp(gains[cid])
+
+
+def _exposure_adam(exposure: torch.Tensor, g: torch.Tensor, step: int,
+                   lr: float) -> torch.Tensor:
+    """Adam on stacked latents [values, m, v] with the grid's step count,
+    as tpu3d's manual update (kept out of the grid optimizer)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    gains, m, v = exposure[0], exposure[1], exposure[2]
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    t = torch.tensor(step + 1.0, dtype=torch.float32)
+    mhat = m / (1 - torch.tensor(b1, dtype=torch.float32) ** t)
+    vhat = v / (1 - torch.tensor(b2, dtype=torch.float32) ** t)
+    gains = gains - lr * mhat / (torch.sqrt(vhat) + eps)
+    return torch.stack([gains, m, v])
+
+
+def _crop(grid: torch.Tensor, origin, size, channel: Optional[int] = None) -> torch.Tensor:
+    """The size[0] x size[1] x size[2] block of ``grid`` at ``origin`` (a
+    (3,) integer tensor, on the device, so no host sync), as one row gather
+    on the (X*Y*Z, C) view; one channel of it when ``channel`` is given."""
+    X, Y, Z, C = grid.shape
+    o = torch.as_tensor(origin, device=grid.device)
+    ax = [o[a] + torch.arange(size[a], device=grid.device) for a in range(3)]
+    rows = (ax[0][:, None, None] * Y + ax[1][None, :, None]) * Z + ax[2][None, None, :]
+    flat = grid.reshape(X * Y * Z, C)
+    return flat[rows] if channel is None else flat[rows, channel]
+
+
+def _tv_crop_loss(grid: torch.Tensor, origin, crop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stochastic total variation on a (crop+1)^3 block at ``origin``:
+    (density TV, summed SH TV), the mean squared neighbour differences."""
+    X, Y, Z, _ = grid.shape
+    c = _crop(grid, origin, (min(crop, X - 1) + 1, min(crop, Y - 1) + 1, min(crop, Z - 1) + 1))
+    per_ch = (((c[1:] - c[:-1]) ** 2).mean(dim=(0, 1, 2))
+              + ((c[:, 1:] - c[:, :-1]) ** 2).mean(dim=(0, 1, 2))
+              + ((c[:, :, 1:] - c[:, :, :-1]) ** 2).mean(dim=(0, 1, 2)))
+    return per_ch[0], per_ch[1:].sum()
+
+
+def _sparsity_crop_loss(grid: torch.Tensor, origin, crop: int) -> torch.Tensor:
+    """Cauchy sparsity on the density of a crop^3 block at ``origin``:
+    mean log(1 + relu(sigma)^2 / 0.25)."""
+    X, Y, Z, _ = grid.shape
+    sig = torch.relu(_crop(grid, origin, (min(crop, X), min(crop, Y), min(crop, Z)), 0))
+    return torch.log1p(sig * sig / 0.25).mean()
+
+
+class StepNoise(NamedTuple):
+    """The random numbers of one training step. tpu3d draws them from the
+    step key: u = uniform(k, (B, S)) (sdf.py:71); under ``hierarchical``,
+    u from split(k)[0] over the n_coarse depths and u_fine from split(k)[1]
+    (render.py:428); the TV and sparsity crop origins from fold_in(k, 7) and
+    fold_in(k, 11) (train.py:302-306, 371-373)."""
+    u: torch.Tensor                                  # (B, S) or (B, n_coarse)
+    u_fine: Optional[torch.Tensor] = None            # (B, n_fine)
+    tv_origin: Optional[torch.Tensor] = None         # (3,) int64
+    sparsity_origin: Optional[torch.Tensor] = None   # (3,) int64
+
+
+def draw_step_noise(cfg: DenseConfig, grid_shape, n_rays: int,
+                    generator: torch.Generator, device) -> StepNoise:
+    """One step's StepNoise from ``generator``, on ``device``."""
+    X, Y, Z = grid_shape[:3]
+
+    def origin(highs):
+        return torch.stack([torch.randint(0, h, (), generator=generator, device=device)
+                            for h in highs])
+
+    def uniform(n):
+        return torch.rand((n_rays, n), generator=generator, device=device)
+
+    u = uniform(cfg.n_coarse if cfg.hierarchical else cfg.num_samples)
+    u_fine = uniform(cfg.n_fine) if cfg.hierarchical else None
+    tv = (origin([d - min(cfg.tv_crop, d - 1) for d in (X, Y, Z)])
+          if cfg.tv_sigma or cfg.tv_sh else None)
+    sp = (origin([d - min(cfg.tv_crop, d) + 1 for d in (X, Y, Z)])
+          if cfg.sparsity_sigma else None)
+    return StepNoise(u, u_fine, tv, sp)
+
+
+def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
+               rays_d: torch.Tensor, rgb: torch.Tensor, cid: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[StepNoise] = None) -> torch.Tensor:
+    """One plenoxel training step on a ray batch, as tpu3d's step_body
+    (train.py:420-443, 484-507): render with jittered depths (or
+    hierarchically), MSE against the photographs' colours (after the
+    exposure gains), plus the TV and sparsity priors; one backward gives the
+    grid, exposure and background gradients; then the latents' Adam and the
+    grid optimizer at the scheduled lr. ``noise`` injects the step's random
+    numbers; otherwise they are drawn from ``generator``. Updates ``state``
+    in place and returns the loss as a 0-d device tensor (no host sync)."""
+    vg = state.grid
+    if noise is None:
+        noise = draw_step_noise(cfg, vg.grid.shape, rays_o.shape[0], generator, rays_o.device)
+    has_exp = state.exposure is not None and cid is not None
+    has_bg = state.background is not None
+    gains = state.exposure[0].clone().requires_grad_() if has_exp else None
+    bg_sh = state.background[0].clone().requires_grad_() if has_bg else None
+    bg = _ray_background(bg_sh, rays_d)
+    if cfg.hierarchical:
+        pred = render_rays_hierarchical(vg, rays_o, rays_d, cfg.near, cfg.far, cfg.n_coarse,
+                                        cfg.n_fine, cfg.white_background,
+                                        clip_aabb=cfg.per_ray_aabb, bg=bg,
+                                        u_coarse=noise.u, u_fine=noise.u_fine)
+    else:
+        pred = render_rays(vg, rays_o, rays_d, cfg.near, cfg.far, cfg.num_samples,
+                           cfg.white_background, clip_aabb=cfg.per_ray_aabb, bg=bg,
+                           perturb=True, u=noise.u)
+    loss = ((_exposure_apply(pred, gains, cid if has_exp else None) - rgb) ** 2).mean()
+    if cfg.tv_sigma or cfg.tv_sh:
+        tv_s, tv_c = _tv_crop_loss(vg.grid, noise.tv_origin, cfg.tv_crop)
+        loss = loss + cfg.tv_sigma * tv_s + cfg.tv_sh * tv_c
+    if cfg.sparsity_sigma:
+        loss = loss + cfg.sparsity_sigma * _sparsity_crop_loss(vg.grid, noise.sparsity_origin,
+                                                               cfg.tv_crop)
+    loss.backward()
+    with torch.no_grad():
+        if has_exp:
+            state.exposure = _exposure_adam(state.exposure, gains.grad, state.step,
+                                            cfg.exposure_lr)
+        if has_bg:
+            state.background = _exposure_adam(state.background, bg_sh.grad, state.step,
+                                              cfg.background_lr)
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.lr(state.step)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    return loss.detach()
+
+
+def _optimizer_leaves(state: TrainState) -> List[np.ndarray]:
+    """The grid optimizer's state in optax's leaf order: adam (count, mu,
+    nu, schedule count), rmsprop (nu, schedule count)."""
+    p = state.grid.grid
+    st = state.optimizer.state.get(p, {})
+
+    def host(name):
+        t = st.get(name)
+        return np.zeros(p.shape, np.float32) if t is None else t.detach().cpu().numpy()
+
+    count = np.asarray(state.step, np.int32)
+    if isinstance(state.optimizer, RMSprop):
+        return [host("nu"), count]
+    adam_count = np.asarray(int(st["step"]) if "step" in st else 0, np.int32)
+    return [adam_count, host("exp_avg"), host("exp_avg_sq"), count]
+
+
+def save_checkpoint(store, state: TrainState, epoch: int, losses: List[float]) -> None:
+    """tpu3d's ``dense_ckpt``: grid, bounds, step, epoch, losses, the
+    latents, and the optimizer's state as opt_0, opt_1, ... in optax's leaf
+    order, so that tpu3d's load_checkpoint resumes it."""
+    extra = {}
+    if state.exposure is not None:
+        extra["exposure"] = state.exposure.cpu().numpy()
+    if state.background is not None:
+        extra["background"] = state.background.cpu().numpy()
+    vg = state.grid
+    store.save("dense_ckpt", grid=vg.grid.detach().cpu().numpy(),
+               min_bound=vg.min_bound.cpu().numpy(), max_bound=vg.max_bound.cpu().numpy(),
+               step=np.asarray(state.step, np.int32), epoch=np.asarray(epoch),
+               losses=np.asarray(losses, np.float32), **extra,
+               **{f"opt_{i}": a for i, a in enumerate(_optimizer_leaves(state))})
+
+
+def load_checkpoint(store, cfg: DenseConfig, steps_per_epoch: int, device
+                    ) -> Optional[Tuple[TrainState, int, List[float]]]:
+    """(state, epoch, losses) from a ``dense_ckpt`` that tpu3d or the port
+    wrote, or None. A grid and moments saved in tpu3d's packed layout are
+    unpacked; the optimizer's leaves fill torch.optim.Adam's step, exp_avg
+    and exp_avg_sq (rmsprop: nu)."""
+    data = store.load("dense_ckpt")
+    if data is None:
+        return None
+
+    def vec(name):
+        return torch.as_tensor(np.asarray(data[name], np.float32), device=device)
+
+    grid = VoxelGrid(grid_tensor(data["grid"], device), vec("min_bound"), vec("max_bound"))
+    state = init_state(cfg, grid, steps_per_epoch)
+    state.step = int(data["step"])
+    state.exposure = vec("exposure") if "exposure" in data else None
+    state.background = vec("background") if "background" in data else None
+    p = state.grid.grid
+    if isinstance(state.optimizer, RMSprop):
+        state.optimizer.state[p] = {"nu": grid_tensor(data["opt_0"], device)}
+    else:
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(data["opt_0"]), dtype=torch.float32, device=device),
+            "exp_avg": grid_tensor(data["opt_1"], device),
+            "exp_avg_sq": grid_tensor(data["opt_2"], device)}
+    return state, int(data["epoch"]), [float(x) for x in data["losses"]]
+
+
+def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed: int = 0,
+                   grid: Optional[VoxelGrid] = None, verbose: bool = True,
+                   log_every: int = 170, checkpoint_store=None, resume: bool = False,
+                   device="cuda") -> Tuple[VoxelGrid, List[float]]:
+    """tpu3d's plenoxel training loop (train.py:729-917) on ``device``: the
+    ray dataset is uploaded once; each epoch shuffles it on the device and
+    each step indexes its batch there; the loss comes back to the host only
+    every ``log_every`` steps; a checkpoint is saved after each epoch when a
+    store is given, and ``resume`` continues after the saved epoch. Returns
+    (the trained grid, the logged losses). The cascade base grid, the mesh
+    and the options of _refuse_unported are not ported."""
+    cfg = cfg or DenseConfig()
+    _refuse_unported(cfg)
+    dev = resolve_device(device)
+    n = len(dataset.origins)
+    steps_per_epoch = max(n // cfg.batch_size, 1)
+    if grid is None:
+        s = cfg.scene_scale
+        grid = create_grid(cfg.grid_resolution, (-s, -s, -s), (s, s, s), device=dev)
+    n_cams = (int(dataset.cam_ids.max()) + 1
+              if cfg.exposure and dataset.cam_ids is not None else None)
+    state = init_state(cfg, grid, steps_per_epoch, n_cams)
+    losses: List[float] = []
+    start_epoch = 0
+    if resume and checkpoint_store is not None:
+        ck = load_checkpoint(checkpoint_store, cfg, steps_per_epoch, dev)
+        if ck is not None:
+            state, start_epoch, losses = ck
+            start_epoch += 1
+            if verbose:
+                print(f"[dense] resumed at epoch {start_epoch}", flush=True)
+    o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                             for a in (dataset.origins, dataset.dirs, dataset.rgb))
+    cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
+               if n_cams is not None else None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    log = []
+    t0 = time.time()
+    with f32_scope():
+        for epoch in range(start_epoch, cfg.epochs):
+            perm = torch.randperm(n, generator=gen, device=dev)
+            for b in range(steps_per_epoch):
+                idx = perm[b * cfg.batch_size:(b + 1) * cfg.batch_size]
+                loss = train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
+                                  None if cid_all is None else cid_all[idx], generator=gen)
+                if b % log_every == 0:
+                    lv = float(loss)
+                    losses.append(lv)
+                    log.append({"epoch": epoch, "step": b, "loss": lv,
+                                "seconds": time.time() - t0})
+                    if verbose:
+                        rate = (b + 1) * cfg.batch_size / (time.time() - t0)
+                        print(f"[dense] epoch {epoch} step {b}/{steps_per_epoch} "
+                              f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+            if checkpoint_store is not None:
+                save_checkpoint(checkpoint_store, state, epoch, losses)
+    LAST_TRAIN_AUX.clear()
+    LAST_TRAIN_AUX.update(
+        background=None if state.background is None else state.background[0].cpu().numpy(),
+        exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
+        dropped_cameras=[], log=log, steps=state.step)
+    vg = state.grid
+    return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses

@@ -5,7 +5,8 @@ adds one where it launches its kernel and nowhere else, so a run can show
 that it went through the kernels."""
 from __future__ import annotations
 
-LAUNCHES = {"patch_sample_kernel": 0, "top2_kernel": 0, "trilinear_kernel": 0}
+LAUNCHES = {"patch_sample_kernel": 0, "top2_kernel": 0, "trilinear_kernel": 0,
+            "trilinear_grad_kernel": 0}
 
 
 def reset_launches() -> None:

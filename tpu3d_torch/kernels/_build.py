@@ -38,6 +38,8 @@ _SIGNATURES = {
     "tpu3d_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # grid, min_bound, max_bound, pts, out, in_bounds, X, Y, Z, C, N, stream
     "tpu3d_trilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _P],
+    # g, min_bound, max_bound, pts, out, X, Y, Z, C, N, vec, stream
+    "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P],
 }
 
 
