@@ -33,9 +33,19 @@ Phases, one line each, any failure exits non-zero:
                launches; then one training step under torch.profiler: the
                device time of the forward kernel, the scatter with its fill,
                the Adam update and the elementwise kernels, and the busy share.
+  7. full    — sfm.pipeline.reconstruct (extract -> retrieve -> match ->
+               reconstruct) on the 24 views from arrays, at tpu3d's default
+               PipelineConfig with the scene's focal, twice: the split
+               descriptor, then fused_descriptor=True. Per run: seconds per
+               stage and the engine's phase timers, registered cameras,
+               points, mean reprojection px, camera-centre and rotation error
+               after a similarity alignment to the scene's poses, peak memory
+               and launches. Then the split run's reconstruct stage once more
+               under torch.profiler, for its busy share and top kernels.
 
-The line before the last is the kernel table as JSON; the last line is the
-device JSON. ``make_scene``, ``make_reconstruction_artifacts``,
+The kernel rows (phase 3): patch_sample_kernel, top2_kernel,
+trilinear_kernel, trilinear_grad_kernel, orient_desc_kernel. The line before
+the last is the kernel table as JSON; the last line is the device JSON. ``make_scene``, ``make_reconstruction_artifacts``,
 ``make_dense_artifacts`` and ``rotation_errors_deg`` are shared with the CPU
 tests (tests/test_torch_slice.py, tests/test_torch_dense.py,
 tests/test_torch_train.py).
@@ -93,6 +103,20 @@ TRAIN_LOG_EVERY = 10
 TPU3D_CPU_TRAIN_PSNR = 11.82993530895601
 MAX_TRAIN_PSNR_DIFF_DB = 0.16
 SLICE_KERNELS = ("patch_sample_kernel", "top2_kernel")
+# The full phase: tpu3d's reconstruct on make_scene(SCENE_SEED) at these
+# shapes on the CPU (default PipelineConfig, the scene's focal in camera and
+# sfm.camera), over three seeds of its draws, as
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_reconstruct.py`
+# prints: the fewest cameras it registered, and its worst mean reprojection
+# error plus twice the spread over the seeds (the port's draws differ).
+# Seeds 0/1/2: 24/24 each, 0.160347 / 0.158472 / 0.160955 px.
+TPU3D_CPU_REGISTERED = 24
+MAX_FULL_REPROJ_PX = 0.165923
+# orient_desc_kernel against its plain version: theta within 1e-5 rad and
+# samples within orient_desc.sample_tolerance (1e-5 x max|g|, plus what the
+# theta difference can move a sample) except at near ties (< 5%).
+ORIENT_THETA_TOL = 1e-5
+ORIENT_SAMPLE_TOL = 1e-5
 
 
 # --------------------------------------------------------------------------
@@ -577,6 +601,206 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
 
 
+def _orient_desc_inputs(torch, dev, scene, cfg):
+    """The arguments the extract stage hands orient_and_describe for the
+    first batch of make_scene's views (4 x 2048 = 8,192 keypoints, the
+    unified gradient stack of 4 images x 4 octaves x 3 levels): captured
+    from one extract_features call, in orient_desc_samples' order."""
+    from tpu3d_torch.features import frontend
+
+    seen = {}
+    real = frontend.orient_and_describe
+
+    def capture(*args, **kw):
+        seen["args"] = args
+        return real(*args, **kw)
+
+    frontend.orient_and_describe = capture
+    try:
+        frontend.extract_features(torch.from_numpy(scene["gray"][: cfg.frontend.batch_size]),
+                                  cfg.frontend, device=dev)
+    finally:
+        frontend.orient_and_describe = real
+    gx, gy, kx, ky, lvl, sigma, ymax, xmax = seen["args"]
+    return (gx, gy, ky.contiguous(), kx.contiguous(), lvl.contiguous(), sigma.contiguous(),
+            ymax.contiguous(), xmax.contiguous())
+
+
+def _check_orient_desc(torch, dev, scene, cfg) -> dict:
+    """orient_desc_kernel against its plain version at the main path's
+    shape: one extract batch (K = 8,192) with the real gradient stack."""
+    from tpu3d_torch.kernels import orient_desc as od
+
+    args = _orient_desc_inputs(torch, dev, scene, cfg)
+    gx, gy, ky, kx, lvl, sigma, ymax, xmax = args
+    gxs, gys, th = od.orient_desc_samples(*args)
+    torch.cuda.synchronize()
+    rgx, rgy, rth = od.orient_desc_samples_plain(*args)
+    dth = (torch.remainder(th - rth + np.pi, 2 * np.pi) - np.pi).abs()
+    ties = od.near_ties(*args)
+    agree = dth <= ORIENT_THETA_TOL
+    scale = max(gx.abs().max().item(), gy.abs().max().item())
+    err = torch.maximum((gxs - rgx).abs(), (gys - rgy).abs())
+    over = (err > od.sample_tolerance(gx, gy, sigma, dth, ORIENT_SAMPLE_TOL)) & agree[:, None]
+    K = ky.shape[0]
+    n_ties, n_flip = int(ties.sum()), int((~agree).sum())
+    max_err = float(err[agree].max()) if bool(agree.any()) else 0.0
+    theta_err = float(dth[agree].max()) if bool(agree.any()) else 0.0
+    if bool((~agree & ~ties).any()):
+        _fail(f"orient_desc_kernel: theta differs by > {ORIENT_THETA_TOL} rad on "
+              f"{int((~agree & ~ties).sum())} keypoints that are not near ties")
+    if not n_ties < 0.05 * K:
+        _fail(f"orient_desc_kernel: {n_ties} near-tie keypoints of {K} (>= 5%)")
+    if bool(over.any()):
+        bad = over.any(1)
+        _fail(f"orient_desc_kernel: samples beyond the tolerance on {int(bad.sum())} keypoints "
+              f"(max |err| {max_err:.3g}, max|g| {scale:.3g}; their dtheta "
+              f"{dth[bad].tolist()[:8]}, sigma {sigma[bad].tolist()[:8]}, err "
+              f"{err[bad].max(1).values.tolist()[:8]})")
+    ms = _time_ms(torch, lambda: od.orient_desc_samples(*args), 50)
+    plain_ms = _time_ms(torch, lambda: od.orient_desc_samples_plain(*args), 3)
+    # Bound, by bytes: the keypoint parameters and the outputs once, and
+    # every texel of both planes that this run's 121 + 256 samples per
+    # keypoint touch (their 2x2 cells), once.
+    L, H, W = gx.shape
+    ys, xs = (torch.cat(c, 1) for c in zip(od.orientation_coords(ky, kx, sigma, ymax, xmax),
+                                           od.descriptor_coords(ky, kx, sigma, rth, ymax, xmax)))
+    y0 = ys.floor().long().clamp(0, H - 2)
+    x0 = xs.floor().long().clamp(0, W - 2)
+    base = (lvl.long()[:, None].clamp(0, L - 1) * H + y0) * W + x0
+    texels = torch.unique(torch.cat([base, base + 1, base + W, base + W + 1]).reshape(-1)).numel()
+    nbytes = 2 * 4 * texels + K * (6 * 4 + (2 * 256 + 1) * 4) + 3 * 121 * 4
+    per_sample_bytes = K * (377 * 4 * 2 * 4 + (2 * 256 + 1) * 4)
+    # operations: 377 bilinear samples of 2 planes (11 each), 121 angle /
+    # magnitude / bin evaluations (~35), 36 bins x 121 votes x 2, the
+    # circulant (9 per bin), 256 rotated offsets (8 each)
+    flops = K * (377 * 2 * 11 + 121 * 35 + 36 * 121 * 2 + 36 * 9 + 256 * 8)
+    bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
+    print(f"kernel orient_desc_kernel K={K} stack {L}x{H}x{W}: max_abs_err={max_err:.3g} "
+          f"(max|g| {scale:.3g}) theta_err={theta_err:.3g} rad; near ties {n_ties}, other peak "
+          f"picked {n_flip}; ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"(touched texels {texels}; every corner of every sample once "
+          f"{per_sample_bytes / H100_BYTES_PER_S * 1e3:.4f} ms; "
+          f"{nbytes / ms / 1e6:.0f} GB/s)", flush=True)
+    return dict(name="orient_desc_kernel", route="cuda", source="tpu3d_torch/csrc/orient_desc.cu",
+                replaces="tpu3d/kernels/orient_desc.py:214", max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
+                else "operations", library_ms=None)
+
+
+def _align(cams, R_gt, t_gt):
+    """Camera-centre errors (relative to the spread of the scene's centres)
+    and rotation errors (deg) of [rvec|t] cameras after the similarity that
+    best maps their centres onto the scene's."""
+    from tpu3d_torch.core.lie import so3_exp_np
+
+    R = np.stack([so3_exp_np(c[:3]).astype(np.float64) for c in cams])
+    C = np.einsum("nji,nj->ni", R, -np.asarray(cams, np.float64)[:, 3:6])
+    G = np.einsum("nji,nj->ni", R_gt, -t_gt)
+    ma, mb = C.mean(0), G.mean(0)
+    A, B = C - ma, G - mb
+    U, S, Vt = np.linalg.svd(B.T @ A)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    Rs = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / (A ** 2).sum()
+    cen = np.linalg.norm(s * A @ Rs.T + mb - G, axis=1) / np.linalg.norm(B, axis=1).max()
+    cos = (np.einsum("nij,nij->n", R @ Rs.T, R_gt) - 1.0) / 2.0
+    return cen, np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def _full_config(scene):
+    from tpu3d_torch.config import CameraConfig, PipelineConfig
+
+    cfg = PipelineConfig()
+    cam = CameraConfig(focal_length=scene["focal"])
+    return dataclasses.replace(cfg, camera=cam, sfm=dataclasses.replace(cfg.sfm, camera=cam))
+
+
+def _run_full(torch, dev, scene) -> dict:
+    """reconstruct on the card twice (split descriptor, then fused), each
+    with the launch counts set to 0 just before it and read just after.
+    Returns the fused run's launches."""
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+    from tpu3d_torch.sfm import pipeline as P
+
+    base = _full_config(scene)
+    runs = {}
+    for name, fused in (("split", None), ("fused", True)):
+        cfg = dataclasses.replace(base, frontend=dataclasses.replace(base.frontend,
+                                                                   fused_descriptor=fused))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        rec, secs = P.reconstruct((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        timers = dict(P.LAST_SFM_TIMERS)
+        reg = rec.registered
+        cen, rot = _align(rec.cams, scene["R"][reg], scene["t"][reg])
+        runs[name] = dict(registered=len(reg), reproj=rec.mean_reproj_px, launches=launches)
+        print(f"full ({name} descriptor): {wall:.3f} s; stage s "
+              f"{ {k: round(v, 3) for k, v in secs.items()} }; engine s {timers}; registered "
+              f"{len(reg)}/{N_VIEWS} (tpu3d on the CPU {TPU3D_CPU_REGISTERED}), points "
+              f"{len(rec.points)}, observations {rec.num_obs}, mean reprojection "
+              f"{rec.mean_reproj_px:.4f} px; camera centre error / spread median "
+              f"{np.median(cen):.3g} max {cen.max():.3g}; rotation error median "
+              f"{np.median(rot):.4f} max {rot.max():.4f} deg; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+        if not np.isfinite(rec.mean_reproj_px) or not np.all(np.isfinite(rec.points)):
+            _fail(f"full ({name}): reprojection error or points not finite")
+        if len(reg) < TPU3D_CPU_REGISTERED - 1:
+            _fail(f"full ({name}): {len(reg)} cameras registered < {TPU3D_CPU_REGISTERED} - 1 "
+                  "(tpu3d on the CPU)")
+    if not runs["split"]["reproj"] <= MAX_FULL_REPROJ_PX:
+        _fail(f"full (split): mean reprojection {runs['split']['reproj']:.4f} px > "
+              f"{MAX_FULL_REPROJ_PX} (tpu3d's worst over three seeds + twice their spread)")
+    fused = runs["fused"]["launches"]
+    if fused["orient_desc_kernel"] <= 0:
+        _fail("full (fused): orient_desc_kernel was not launched")
+    if not fused["patch_sample_kernel"] < runs["split"]["launches"]["patch_sample_kernel"]:
+        _fail("full (fused): patch_sample_kernel launches not fewer than the split run's "
+              f"({fused['patch_sample_kernel']} vs "
+              f"{runs['split']['launches']['patch_sample_kernel']})")
+    return fused
+
+
+def _profile_reconstruct(torch, dev, scene) -> None:
+    """The split run's stages once more; its reconstruct stage under
+    torch.profiler: wall, device busy share, the engine's host share and
+    the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3d_torch.sfm import pipeline as P
+
+    cfg = _full_config(scene)
+    feats = P.run_extraction((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+    adj = P.run_retrieval(feats, cfg, device=dev)
+    regs, ts = P.run_matching(feats, adj, cfg, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        P.run_reconstruction(feats, regs, ts, cfg, verbose=False, adj=adj, device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    timers = dict(P.LAST_SFM_TIMERS)
+    per_kernel = _device_ms(prof)
+    busy = sum(per_kernel.values())
+    n_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile reconstruct: wall {wall:.3f} s (profiled), device busy {busy:.1f} ms "
+          f"({busy / (wall * 1e3):.1%}), {n_kernels} device events; engine host "
+          f"{timers['host']} s ({timers['host'] / wall:.1%} of the wall), timers {timers}; "
+          "top kernels: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top), flush=True)
+
+
 def _run_dense(torch, dev, scene, root) -> dict:
     """densify_eval_only on the card over the artifacts in ``root``, with the
     launch counts set to 0 just before it and read just after; then each
@@ -927,7 +1151,8 @@ def main() -> int:
                   f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
             kernels = [_check_patch_sample(torch, dev), _check_top2(torch, dev),
                        _check_trilinear(torch, dev, scene, dense),
-                       _check_trilinear_grad(torch, dev, train_cfg, train_ds)]
+                       _check_trilinear_grad(torch, dev, train_cfg, train_ds),
+                       _check_orient_desc(torch, dev, scene, _full_config(scene))]
         del dense
         torch.cuda.empty_cache()
 
@@ -942,6 +1167,10 @@ def main() -> int:
         launches.update(trilinear_kernel=train["trilinear_kernel"],
                         trilinear_grad_kernel=train["trilinear_grad_kernel"])
         _profile_train_step(torch, dev, train_cfg, train_ds)
+        # The orient_desc row reports the fused full run (the only path
+        # that launches it).
+        launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
+        _profile_reconstruct(torch, dev, scene)
     finally:
         shutil.rmtree(dense_root, ignore_errors=True)
         shutil.rmtree(train_root, ignore_errors=True)

@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from tpu3d_torch.ba import bundle_adjust
 from tpu3d_torch.features.detector import _neighbors27
 from tpu3d_torch.kernels import LAUNCHES
+from tpu3d_torch.kernels.orient_desc import (near_ties, orient_desc_samples,
+                                             orient_desc_samples_plain, sample_tolerance)
 from tpu3d_torch.kernels.distance import descriptor_top2, descriptor_top2_plain
 from tpu3d_torch.kernels.patch_sample import (sample_gradient_patches,
                                               sample_gradient_patches_plain)
@@ -239,3 +242,69 @@ def test_render_image_on_the_card(cuda, gen):
     ref = render_image(VoxelGrid(*(x.cpu() for x in vg)), o.cpu(), d.cpu(), 0.5, 4.5, 64,
                        chunk=128, clip_aabb=True, bg_sh=bg.cpu())
     assert (got.cpu() - ref).abs().max().item() <= 1e-5
+
+
+def test_orient_desc_kernel_matches_plain(cuda, gen):
+    """Smoothed random levels, keypoints inside and on the border of their
+    octave rectangle: theta within 1e-5 rad and the samples within
+    sample_tolerance (1e-5 x max|g| plus what dtheta can move a sample)
+    except at near-tie keypoints (< 5%). The
+    kernel sums the histogram in the plain version's order and rounds as it
+    does; only sincosf and PyTorch's sin/cos may differ."""
+    L, H, W, K = 6, 120, 150, 512
+    img = torch.randn((L, 1, H, W), generator=gen, device=cuda)
+    img = torch.nn.functional.avg_pool2d(img, 5, 1, 2)[:, 0]
+    gx = (torch.roll(img, -1, -1) - torch.roll(img, 1, -1)).contiguous() * 0.5
+    gy = (torch.roll(img, -1, -2) - torch.roll(img, 1, -2)).contiguous() * 0.5
+    ky = torch.rand(K, generator=gen, device=cuda) * (H - 1)
+    kx = torch.rand(K, generator=gen, device=cuda) * (W - 1)
+    lvl = torch.randint(0, L, (K,), generator=gen, device=cuda, dtype=torch.int32)
+    sigma = 1.6 + torch.rand(K, generator=gen, device=cuda) * 2.0
+    ymax = torch.full((K,), H - 1.001, device=cuda)
+    xmax = torch.full((K,), W - 1.001, device=cuda)
+    ymax[::4] = H / 2 - 1.001          # a smaller octave's rectangle
+    args = (gx, gy, ky, kx, lvl, sigma, ymax, xmax)
+    before = LAUNCHES["orient_desc_kernel"]
+    gxs, gys, th = orient_desc_samples(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["orient_desc_kernel"] == before + 1
+    rgx, rgy, rth = orient_desc_samples_plain(*args)
+    dth = torch.remainder(th - rth + np.pi, 2 * np.pi) - np.pi
+    ties = near_ties(*args)
+    assert ties.float().mean().item() < 0.05
+    agree = dth.abs() <= 1e-5
+    assert bool((agree | ties).all())
+    tol = sample_tolerance(gx, gy, sigma, dth.abs())
+    assert bool(((gxs - rgx).abs() <= tol)[agree].all())
+    assert bool(((gys - rgy).abs() <= tol)[agree].all())
+
+
+def test_bundle_adjust_on_the_card(cuda, gen):
+    """The Schur-CG LM on the card against the CPU on one problem: the same
+    number of iterations (stopped by max_iters before convergence), cost
+    within 1e-4 relative, cameras and points within 1e-4 (index_add_'s
+    atomics sum in another order than the CPU's)."""
+    C, P = 5, 400
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(-2, 2, P), rng.uniform(-2, 2, P), rng.uniform(5, 9, P)], -1)
+    cams = np.zeros((C, 6))
+    cams[:, 3] = np.arange(C) * 0.4 - 0.8
+    ci = np.repeat(np.arange(C), P)
+    pi = np.tile(np.arange(P), C)
+    Xc = X[pi] + cams[ci, 3:]
+    uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 3e-4, (C * P, 2))
+    # cameras 0 and 1 frozen at their true poses: the scale gauge is fixed
+    cams0 = cams + np.concatenate([np.zeros((2, 6)), rng.normal(0, 0.02, (C - 2, 6))])
+    X0 = X + rng.normal(0, 0.05, X.shape)
+    fixed = np.zeros(C)
+    fixed[:2] = 1.0
+    arrays = [np.asarray(a, np.float32) for a in (cams0, X0)] + [ci, pi] + [
+        np.asarray(a, np.float32) for a in (uv, np.ones(C * P), fixed)]
+    cpu = bundle_adjust(*(torch.from_numpy(a) for a in arrays), max_iters=5,
+                        robust_delta=3e-3)
+    gpu = bundle_adjust(*(torch.from_numpy(a).to(cuda) for a in arrays), max_iters=5,
+                        robust_delta=3e-3)
+    assert gpu.n_iters == cpu.n_iters == 5
+    assert abs(gpu.cost.item() - cpu.cost.item()) <= 1e-4 * cpu.cost.item()
+    assert (gpu.cams.cpu() - cpu.cams).abs().max().item() <= 1e-4
+    assert (gpu.points.cpu() - cpu.points).abs().max().item() <= 1e-4

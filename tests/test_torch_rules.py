@@ -15,7 +15,9 @@ import torch
 import chip_smoke
 from tpu3d_torch.config import PipelineConfig
 from tpu3d_torch.features.frontend import extract_features
+from tpu3d_torch.kernels import LAUNCHES, reset_launches
 from tpu3d_torch.kernels.distance import descriptor_top2
+from tpu3d_torch.kernels.orient_desc import orient_desc_samples
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches
 from tpu3d_torch.kernels.trilinear_grad import trilinear_scatter_grad
 from tpu3d_torch.sfm import pipeline as TP
@@ -61,6 +63,10 @@ def test_entry_points_default_to_the_card(no_card):
         lambda: TP.run_retrieval(TP.ExtractedFeatures.from_numpy(**_features(), device="cpu"), cfg),
         lambda: TP.run_matching(TP.ExtractedFeatures.from_numpy(**_features(), device="cpu"),
                                 {0: [1], 1: [0]}, cfg, verbose=False),
+        lambda: TP.reconstruct((gray, np.zeros((2, 64, 64, 3), np.uint8)), cfg, verbose=False),
+        lambda: TP.run_reconstruction(TP.ExtractedFeatures.from_numpy(**_features(),
+                                                                      device="cpu"),
+                                      [], None, cfg, verbose=False),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -80,12 +86,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         trilinear_scatter_grad(torch.empty((5, 28), device=meta), b, b, (4, 4, 4),
                                torch.empty((5, 3), device=meta))
+    k = torch.empty(4, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        orient_desc_samples(x, x, k, k, torch.empty(4, dtype=torch.int32, device=meta), k, k, k)
 
 
-def test_fused_descriptor_is_not_ported():
+def test_fused_descriptor_takes_the_plain_version_on_cpu():
     cfg = PipelineConfig.from_dict({"frontend": {"fused_descriptor": True, "max_keypoints": 8}})
-    with pytest.raises(NotImplementedError, match="orient_desc"):
-        extract_features(torch.rand((1, 160, 160)), cfg.frontend, device="cpu")
+    reset_launches()
+    fs = extract_features(torch.rand((1, 160, 160)), cfg.frontend, device="cpu")
+    assert fs.descriptors.shape == (1, 8, 128) and bool(torch.isfinite(fs.descriptors).all())
+    assert LAUNCHES["orient_desc_kernel"] == 0
 
 
 def test_chip_smoke_needs_a_card(no_card, capsys):

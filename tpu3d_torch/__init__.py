@@ -8,10 +8,11 @@ copies here.
 
 Every entry point takes ``device="cuda"`` and runs on the card unless the
 caller passes ``device="cpu"``; asking for the card where there is none
-raises. The kernels of the ported paths (extract → retrieve → match, and the
-dense stage's training and render/eval) are CUDA C++ (``csrc/``), built at
-first use; on a CPU tensor their wrappers use the plain PyTorch version of
-the same function.
+raises. The kernels of the ported paths (extract → retrieve → match →
+reconstruct, and the dense stage's training and render/eval) are CUDA C++
+(``csrc/``), one for each of tpu3d's Pallas kernels, built at first use; on
+a CPU tensor their wrappers use the plain PyTorch version of the same
+function.
 """
 from __future__ import annotations
 

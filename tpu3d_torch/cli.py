@@ -1,7 +1,9 @@
-"""The port's dense entry points, as tpu3d's ``cli densify`` (training,
-tpu3d/cli.py:417-820), ``cli densify --eval-only`` (:847-920) and ``cli
-render`` (:1011-1115).
+"""The port's entry points: tpu3d's ``cli full`` (images to poses, points and
+PLY, tpu3d/cli.py:1167-1223), ``cli densify`` (training, :417-820), ``cli
+densify --eval-only`` (:847-920) and ``cli render`` (:1011-1115).
 
+    python -m tpu3d_torch.cli full --images DIR --artifacts DIR [--downscale N]
+        [--limit N] [--ply out.ply] [tpu3d's sparse-stage flags]
     python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--epochs N]
         [--ray-stride S] [--norm coremax|core|legacy] [--hierarchical]
         [--tv-sigma W --tv-sh W] [--sparsity-sigma W] [--exposure]
@@ -10,15 +12,17 @@ render`` (:1011-1115).
     python -m tpu3d_torch.cli densify --eval-only --images DIR --artifacts DIR
     python -m tpu3d_torch.cli render --images DIR --artifacts DIR [--orbit N]
 
-They read and write tpu3d's artifacts unchanged: training reads
+They read and write tpu3d's artifacts unchanged: ``full`` writes
+``features_meta``, ``reconstruction`` and ``reconstruction_meta`` (then the
+PLY) and prints tpu3d's JSON summary line; training reads
 ``reconstruction`` and ``reconstruction_meta`` and writes ``dense_ckpt``,
 ``dense_grid``, ``mesh_grid``, ``dense_meta`` and ``dense_result``; eval and
 render take the normalization, band, sample count, per-ray box clipping and
 contraction the grid was trained with from ``dense_meta``. ``densify``,
-``densify_eval_only`` and ``render_artifacts`` are the functions behind the
-commands; they run on the card unless given ``device="cpu"``. Training
-options that are not ported yet raise NotImplementedError naming their
-ROADMAP item.
+``full``, ``densify``, ``densify_eval_only`` and ``render_artifacts`` are
+the functions behind the commands; they run on the card unless given
+``device="cpu"``. Options that are not ported yet raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 from tpu3d_torch import resolve_device
-from tpu3d_torch.config import DenseConfig
+from tpu3d_torch.config import (BAConfig, CameraConfig, DenseConfig, FrontendConfig,
+                                MatchingConfig, PipelineConfig, RansacConfig, SfMConfig)
 from tpu3d_torch.dense.eval import (dataset_from_views, evaluate_views, interpolate_poses,
                                     render_view, split_views_by_name)
 from tpu3d_torch.dense.grid import grid_from_mesh_grid, grid_from_tpu3d
@@ -42,6 +47,7 @@ from tpu3d_torch.dense.train import (LAST_TRAIN_AUX, SceneNormalization, auto_ne
                                      normalize_scene_coremax, normalize_scene_legacy,
                                      train_plenoxel)
 from tpu3d_torch.io.artifacts import ArtifactStore
+from tpu3d_torch.io.ply import write_ply
 
 Artifacts = Union[str, ArtifactStore]
 
@@ -300,6 +306,101 @@ def _trusted_split(meta: dict, per_view, names) -> Optional[Tuple[float, list]]:
             [n for i, n in enumerate(names) if i not in ok])
 
 
+def full(images, artifacts: Artifacts, cfg: PipelineConfig, names: Optional[Sequence[str]] = None,
+         downscale: int = 1, ply: str = "", mode: str = "incremental", verbose: bool = False,
+         device="cuda") -> dict:
+    """Images to poses, as tpu3d's ``cmd_full``: ``sfm.pipeline.reconstruct``
+    (extract → retrieve → match → reconstruct on ``device``), then the
+    artifacts ``features_meta``, ``reconstruction`` and
+    ``reconstruction_meta`` — first, so that a PLY path inside the store
+    cannot fail a finished run — then the PLY. ``images`` is a directory or
+    the decoded ``(gray_u8, rgb_u8)`` arrays. Returns the summary that the
+    command prints."""
+    from tpu3d_torch.sfm import pipeline as P
+
+    rec, timings = P.reconstruct(images, cfg, list(names) if names is not None else None,
+                                 downscale, verbose=verbose, mode=mode, device=device)
+    store = _store(artifacts)
+    store.save_json("features_meta", {"names": list(rec.image_names), "downscale": downscale,
+                                      "num_images": len(rec.image_names)})
+    store.save("reconstruction", cams=rec.cams, registered=rec.registered, points=rec.points,
+               colors_bgr=rec.colors_bgr, track_ids=rec.track_ids, extrinsics=rec.extrinsics())
+    store.save_json("reconstruction_meta", {
+        "registered_names": rec.registered_names(),
+        "mean_reproj_px": rec.mean_reproj_px,
+        "num_obs": rec.num_obs,
+        "mode": mode,
+        "downscale": downscale,
+        "seconds": round(timings["total"], 1),
+        "sfm_phase_seconds": P.LAST_SFM_TIMERS,
+        "sfm_backend": cfg.sfm.backend,
+        "low_confidence_names": [rec.image_names[i] for i in rec.low_confidence],
+        "per_camera_reproj_px": {rec.image_names[i]: round(e, 3)
+                                 for i, e in rec.per_cam_reproj_px.items()},
+    })
+    if ply:
+        write_ply(ply, rec.points, rec.colors_bgr)
+    return {
+        "registered": len(rec.registered), "points": int(len(rec.points)),
+        "mean_reproj_px": rec.mean_reproj_px,
+        "stage_seconds": {k: round(v, 1) for k, v in timings.items()},
+        "extract_timers": dict(P.LAST_EXTRACT_TIMERS),
+        "match_timers": dict(P.LAST_MATCH_TIMERS),
+    }
+
+
+def build_config(args) -> PipelineConfig:
+    """The pipeline config of tpu3d's ``_build_config`` (tpu3d/cli.py:26-63)
+    from the command's flags; the focal length is divided by the
+    downscale."""
+    focal = args.focal / args.downscale
+    scene_scale = args.scene_scale if args.scene_scale > 0 else (
+        1.0 if args.norm in ("coremax", "core") and not args.rays_pkl else 1.5)
+    return PipelineConfig(
+        camera=CameraConfig(focal_length=focal),
+        frontend=FrontendConfig(max_keypoints=args.max_keypoints, model=args.frontend,
+                                weights=args.frontend_weights),
+        matching=MatchingConfig(min_raw_matches=args.min_raw_matches, matcher=args.matcher,
+                                weights=args.matcher_weights),
+        sfm=SfMConfig(
+            camera=CameraConfig(focal_length=focal),
+            max_tracks=args.max_tracks,
+            ransac=RansacConfig(num_hypotheses=args.ransac_hypotheses,
+                                use_five_point=args.five_point),
+            global_ba_every=args.global_ba_every,
+            global_ba_growth=args.global_ba_growth,
+            local_window=args.local_window,
+            register_batch=args.register_batch,
+            backend=args.sfm_backend,
+            register_all=args.register_all,
+            ba=BAConfig(midrun_refit=not args.no_midrun_refit),
+        ),
+        dense=DenseConfig(epochs=args.epochs, grid_resolution=args.grid_resolution,
+                          num_samples=args.num_samples, hierarchical=args.hierarchical,
+                          scene_scale=scene_scale, optimizer=args.dense_optimizer),
+        image_dir=args.images,
+        artifact_dir=args.artifacts,
+    )
+
+
+def _cmd_full(args) -> None:
+    from tpu3d_torch.io.images import list_images
+
+    for flag, bad, item in (("--mode global", args.mode == "global", "Queue 1 item 8"),
+                            ("--register-all", args.register_all, "Queue 1 item 6b"),
+                            (f"--frontend {args.frontend}", args.frontend != "classical",
+                             "Queue 1 item 9"),
+                            (f"--matcher {args.matcher}", args.matcher != "mnn", "Queue 1 item 9")):
+        if bad:
+            raise NotImplementedError(f"tpu3d_torch: full {flag} is not ported yet (ROADMAP {item})")
+    names = list_images(args.images)
+    if args.limit:
+        names = names[: args.limit]
+    out = full(args.images, args.artifacts, build_config(args), names, args.downscale, args.ply,
+               args.mode, verbose=not args.quiet, device=args.device)
+    print(json.dumps(out))
+
+
 def _downscale(store: ArtifactStore, dense_downscale: int) -> int:
     meta = store.load_json("features_meta") or store.load_json("reconstruction_meta") or {}
     return int(meta.get("downscale", 1)) * dense_downscale
@@ -389,12 +490,35 @@ def _cmd_densify(args) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(prog="tpu3d_torch",
-                                description="tpu3d's dense stage (train, eval, render) on the GPU")
-    p.add_argument("command", choices=["densify", "render"])
+                                description="tpu3d's pipeline (full) and dense stage (train, "
+                                            "eval, render) on the GPU")
+    p.add_argument("command", choices=["full", "densify", "render"])
     p.add_argument("--images", required=True)
     p.add_argument("--artifacts", default="artifacts")
+    p.add_argument("--downscale", type=int, default=1)
     p.add_argument("--dense-downscale", type=int, default=4)
+    p.add_argument("--limit", type=int, default=0)
     p.add_argument("--focal", type=float, default=2378.98305085)
+    # full: tpu3d's sparse-stage flags
+    p.add_argument("--max-keypoints", type=int, default=2048)
+    p.add_argument("--frontend", choices=["classical", "disk", "superpoint"], default="classical")
+    p.add_argument("--frontend-weights", default="")
+    p.add_argument("--matcher", choices=["mnn", "lightglue"], default="mnn")
+    p.add_argument("--matcher-weights", default="")
+    p.add_argument("--max-tracks", type=int, default=400_000)
+    p.add_argument("--min-raw-matches", type=int, default=100)
+    p.add_argument("--ransac-hypotheses", type=int, default=512)
+    p.add_argument("--global-ba-every", type=int, default=8)
+    p.add_argument("--global-ba-growth", type=float, default=1.12)
+    p.add_argument("--register-batch", type=int, default=8)
+    p.add_argument("--no-midrun-refit", action="store_true")
+    p.add_argument("--register-all", action="store_true")
+    p.add_argument("--sfm-backend", choices=["auto", "default", "cpu", "hybrid"], default="auto")
+    p.add_argument("--local-window", type=int, default=25)
+    p.add_argument("--mode", choices=["incremental", "global"], default="incremental")
+    p.add_argument("--five-point", dest="five_point", action="store_true", default=True)
+    p.add_argument("--eight-point", dest="five_point", action="store_false")
+    p.add_argument("--ply", default="")
     p.add_argument("--num-samples", type=int, default=192)
     p.add_argument("--eval-only", action="store_true",
                    help="densify: score the saved dense_grid (+detail) on held-out views")
@@ -444,7 +568,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--out", default="", help="render: PNG directory (default ARTIFACTS/renders)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    {"densify": _cmd_densify, "render": _cmd_render}[args.command](args)
+    {"full": _cmd_full, "densify": _cmd_densify, "render": _cmd_render}[args.command](args)
 
 
 if __name__ == "__main__":

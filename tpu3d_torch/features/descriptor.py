@@ -1,10 +1,12 @@
 """Rotation-invariant 128-D gradient-histogram (SIFT-style) descriptors
-(tpu3d/features/descriptor.py), split path only.
+(tpu3d/features/descriptor.py).
 
 Per keypoint: 11x11 orientation samples and a 36-bin histogram give the
 dominant orientation θ; a θ-rotated 16x16 grid of gradient samples is
-binned 4x4x8 and SIFT-normalized. The samples come from
-``sample_gradient_patches`` (``patch_sample_kernel`` on the card).
+binned 4x4x8 and SIFT-normalized. On the split path (the default) the
+samples come from ``sample_gradient_patches`` (``patch_sample_kernel`` on
+the card); on the fused path (``fused_descriptor=True``) θ and the rotated
+samples come from ``orient_desc_samples`` (``orient_desc_kernel``).
 Histograms are one-hot products, not scatter-adds, so their sums are
 deterministic on the card.
 """
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpu3d_torch.kernels.orient_desc import orient_desc_samples
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches
 
 GRID = 16          # descriptor sample grid (GRID x GRID)
@@ -128,11 +131,16 @@ def bin_descriptor(gxs, gys, theta, dyg, dxg) -> torch.Tensor:
 
 def orient_and_describe(gx, gy, kx, ky, lvl, sigma, ymax, xmax,
                         fused: Optional[bool] = None):
-    """Dominant orientation + descriptor for a keypoint batch (the split
-    path). Returns (desc, theta)."""
+    """Dominant orientation + descriptor for a keypoint batch. fused=True
+    takes θ and the rotated samples from one ``orient_desc_samples`` pass
+    (tpu3d's descriptor.py:220-228), then bins them; otherwise the split
+    path. Returns (desc, theta)."""
     if fused:
-        raise NotImplementedError(
-            "fused orientation+descriptor (tpu3d/kernels/orient_desc.py::"
-            "orient_desc_samples) is not ported yet; use fused=None")
+        gxs, gys, theta = orient_desc_samples(
+            gx, gy, ky.contiguous(), kx.contiguous(), lvl.to(torch.int32).contiguous(),
+            sigma.contiguous(), ymax.contiguous(), xmax.contiguous())
+        g = torch.arange(GRID, dtype=torch.float32, device=kx.device) - (GRID - 1) / 2.0
+        dyg, dxg = torch.meshgrid(g, g, indexing="ij")
+        return bin_descriptor(gxs, gys, theta, dyg.reshape(-1), dxg.reshape(-1)), theta
     theta = keypoint_orientations(gx, gy, kx, ky, lvl, sigma, ymax, xmax)
     return sift_descriptors(gx, gy, kx, ky, lvl, sigma, theta, ymax, xmax), theta

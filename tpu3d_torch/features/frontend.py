@@ -117,8 +117,9 @@ def extract_features(images, config: Optional[FrontendConfig] = None,
     """Extract features from a (B, H, W) batch: uint8, or float32 in [0, 1].
     ``patch_precision``/``orient_precision`` are accepted in the config and
     ignored: they select MXU passes on the TPU, and the port always samples
-    in exact f32. ``fused_descriptor`` and ``approx_topk_recall`` are not
-    ported and raise."""
+    in exact f32. ``fused_descriptor=True`` takes the fused orientation +
+    descriptor pass (``orient_desc_kernel`` on the card);
+    ``approx_topk_recall`` is not ported and raises."""
     cfg = config or FrontendConfig()
     if cfg.approx_topk_recall > 0.0:
         raise NotImplementedError("approx_topk_recall > 0 (lax.approx_max_k) is not "

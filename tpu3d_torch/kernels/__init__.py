@@ -6,7 +6,7 @@ that it went through the kernels."""
 from __future__ import annotations
 
 LAUNCHES = {"patch_sample_kernel": 0, "top2_kernel": 0, "trilinear_kernel": 0,
-            "trilinear_grad_kernel": 0}
+            "trilinear_grad_kernel": 0, "orient_desc_kernel": 0}
 
 
 def reset_launches() -> None:

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "tpu3d_trilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _P],
     # g, min_bound, max_bound, pts, out, X, Y, Z, C, N, vec, stream
     "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P],
+    # gx, gy, ky, kx, lvl, sigma, ymax, xmax, table, gxs, gys, theta, L, H, W, K, stream
+    "tpu3d_orient_desc": [_P] * 12 + [_I, _I, _I, _I, _P],
 }
 
 

@@ -1,1 +1,1 @@
-"""Pipeline stages and the hand-off types of the reconstruct stage."""
+"""Pipeline stages, the incremental engine and the reconstruction."""

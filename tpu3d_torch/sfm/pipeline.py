@@ -1,14 +1,18 @@
-"""Pipeline stages 1-3 (tpu3d/sfm/pipeline.py): extract → retrieve → match.
+"""The pipeline (tpu3d/sfm/pipeline.py): extract → retrieve → match →
+reconstruct, and ``reconstruct`` which runs them all.
 
-  1. extract  — batched classical frontend (features/), on the device
-  2. retrieve — BoW codebook + tf-idf + top-k view graph (matching/bow)
-  3. match    — every candidate edge matched (mutual-NN) and E-gated in
-                blocks of ``pair_batch`` pairs, then canonical reference
-                selection, retry and 2-hop rescue over the cached results,
-                with union-find tracks
+  1. extract     — batched classical frontend (features/), on the device
+  2. retrieve    — BoW codebook + tf-idf + top-k view graph (matching/bow)
+  3. match       — every candidate edge matched (mutual-NN) and E-gated in
+                   blocks of ``pair_batch`` pairs, then canonical reference
+                   selection, retry and 2-hop rescue over the cached
+                   results, with union-find tracks
+  4. reconstruct — the incremental engine (sfm/engine.py) over the
+                   registrations, in fixpoint rounds, then a re-matching
+                   rescue of images still unregistered and the final BA
 
 ``run_matching`` returns ``(List[ImageRegistration], TrackStore)``, the
-input of the reconstruct stage. tpu3d's vmap over a block of pairs is a
+input of ``run_reconstruction``. tpu3d's vmap over a block of pairs is a
 leading pair axis here. Random draws come from ``torch.Generator``s seeded
 per edge from the caller's seed, so an edge's result does not depend on
 which block it rides in.
@@ -16,6 +20,7 @@ which block it rides in.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import f32_scope, resolve_device
-from tpu3d_torch.config import PipelineConfig
+from tpu3d_torch.config import PipelineConfig, resolve_sfm_backend
 from tpu3d_torch.features.frontend import extract_features, sample_colors
 from tpu3d_torch.geometry.estimators import find_essential_ransac, lo_hypotheses
 from tpu3d_torch.geometry.fivepoint import five_point_ransac
@@ -35,7 +40,9 @@ from tpu3d_torch.matching.bow import (build_codebook, codebook_draws, tfidf_vect
 from tpu3d_torch.matching.mnn import match_descriptors
 from tpu3d_torch.matching.pairs import build_view_graph
 from tpu3d_torch.matching.tracks import TrackStore
-from tpu3d_torch.sfm.engine import MAX_REFS, EdgeObservations, ImageRegistration
+from tpu3d_torch.sfm.engine import (MAX_REFS, EdgeObservations, ImageRegistration,
+                                    IncrementalSfM)
+from tpu3d_torch.sfm.scene import Reconstruction
 
 
 @dataclasses.dataclass
@@ -94,11 +101,17 @@ def run_extraction(
     downscale: int = 1,
     verbose: bool = True,
     device="cuda",
+    timers: Optional[Dict] = None,
 ) -> ExtractedFeatures:
     """Extract features of every image, ``cfg.frontend.batch_size`` images
     per device batch. ``images`` is a directory of image files, or the
-    decoded ``(gray_u8 (N, H, W), rgb_u8 (N, H, W, 3))`` arrays."""
+    decoded ``(gray_u8 (N, H, W), rgb_u8 (N, H, W, 3))`` arrays.
+    ``timers``, when given, gets the seconds spent loading images and in
+    the frontend (each batch's keypoints are copied to the host, which
+    waits for the device)."""
     dev = resolve_device(device)
+    timers = {} if timers is None else timers
+    timers.update(load=0.0, frontend=0.0)
     if cfg.frontend.model != "classical":
         raise NotImplementedError(
             f"frontend model {cfg.frontend.model!r} is not ported yet")
@@ -119,7 +132,9 @@ def run_extraction(
 
     kps, kp_px, valid, desc, sizes, colors = [], [], [], [], [], []
     for s in range(0, len(names), B):
+        t0 = time.time()
         gray_u8, rgb = load_batch(s)
+        t1 = time.time()
         fs = extract_features(torch.from_numpy(gray_u8), cfg.frontend, device=dev)
         kps.append(fs.keypoints)
         valid.append(fs.valid)
@@ -127,6 +142,8 @@ def run_extraction(
         sizes.append(fs.image_size)
         px = fs.keypoints_px.cpu().numpy()
         kp_px.append(px)
+        timers["load"] += t1 - t0
+        timers["frontend"] += time.time() - t1
         colors.append(sample_colors(rgb[..., ::-1], px))   # BGR like cv2
         if verbose:
             print(f"[extract] {min(s + B, len(names))}/{len(names)} images", flush=True)
@@ -557,3 +574,244 @@ def run_matching(
     timers["rescue_2hop"] = time.time() - _t0
     timers["unmatched"] = sorted(v_ for v_ in range(n_img) if v_ not in visited)
     return accepted, ts
+
+
+# ----------------------------------------------------------------------------
+# Stage 4: reconstruct.
+
+# The most recent run's engine phase timers and counters, and the extract
+# and match timers of the most recent ``reconstruct``.
+LAST_SFM_TIMERS: Dict[str, object] = {}
+LAST_EXTRACT_TIMERS: Dict[str, float] = {}
+LAST_MATCH_TIMERS: Dict[str, object] = {}
+
+
+def _engine_devices(cfg: PipelineConfig, dev: torch.device):
+    """(registration device, BA device) for SfMConfig.backend (see
+    config.resolve_sfm_backend)."""
+    backend = resolve_sfm_backend(cfg.sfm.backend)
+    cpu = torch.device("cpu")
+    if backend == "cpu":
+        return cpu, cpu
+    if backend == "hybrid":
+        return cpu, dev
+    return dev, dev
+
+
+def run_reconstruction(
+    feats: ExtractedFeatures,
+    registrations: List[ImageRegistration],
+    ts: TrackStore,
+    cfg: PipelineConfig,
+    verbose: bool = True,
+    adj: Optional[Dict[int, List[int]]] = None,
+    seed: int = 3,
+    device="cuda",
+) -> Reconstruction:
+    """The incremental engine over the match stage's registrations: edge
+    cap from the p90 edge size, reverse edges for weakly anchored images,
+    chunked registration in fixpoint rounds (a round with no progress falls
+    back to one sequential round), then — with ``adj`` — the re-matching
+    rescue, and the final BA and gates. ``seed`` seeds the rescue's gate
+    draws; the engine's PnP draws come from its own generator (seed 0, as
+    tpu3d's engine key)."""
+    dev = resolve_device(device)
+    if cfg.sfm.edge_consistency_gate:
+        raise NotImplementedError("SfMConfig.edge_consistency_gate is not ported yet "
+                                  "(ROADMAP Queue 1 item 6c); it is off by default")
+    reg_dev, ba_dev = _engine_devices(cfg, dev)
+    engine = IncrementalSfM(n_images=len(feats.names), config=cfg.sfm, device=reg_dev,
+                            ba_device=ba_dev)
+    pending = list(registrations)
+    for reg in pending:
+        # Canonicalize track ids (unions may have merged since creation).
+        for e in reg.edges:
+            e.track = ts.resolve(e.track)
+    # Triangulation capacity from the 90th-percentile edge size: the
+    # densest tenth of edges is truncated (tpu3d/sfm/pipeline.py:1047-1053).
+    sizes = [len(e.idx_new) for r in pending for e in r.edges]
+    if sizes:
+        engine.set_edge_cap(int(np.percentile(sizes, 90)))
+    pending = _symmetrize_weak_registrations(pending, feats, verbose)
+    batch = max(int(cfg.sfm.register_batch), 1)
+    for round_ in range(64):
+        infos = engine.register_batch(pending, batch=batch)
+        failed = []
+        for reg, info in zip(pending, infos):
+            if verbose:
+                print(f"[sfm] {info}", flush=True)
+            if info.get("status") != "registered":
+                failed.append(reg)
+        if not failed:
+            break
+        if len(failed) == len(pending):
+            # A batched round can stall on intra-chunk staleness that a
+            # sequential pass resolves: one batch=1 round before giving up.
+            if batch > 1:
+                batch = 1
+                if verbose:
+                    print("[sfm] no batched progress — sequential fallback round", flush=True)
+                continue
+            break
+        batch = max(int(cfg.sfm.register_batch), 1)
+        pending = failed
+        if verbose:
+            print(f"[sfm] retry round {round_ + 1}: {len(pending)} images", flush=True)
+    if adj:
+        registrations = list(registrations) + _rescue_pass(engine, feats, ts, adj, cfg,
+                                                           verbose, seed, dev)
+    rec = engine.finalize(feats.names, registrations=registrations, verbose=verbose)
+    global LAST_SFM_TIMERS
+    LAST_SFM_TIMERS = {**{k: round(v, 2) for k, v in engine.timers.items()},
+                       "calls": dict(engine.counters), "edge_cap": engine._edge_cap}
+    if verbose:
+        print("[sfm] phase seconds: "
+              + json.dumps({k: round(v, 1) for k, v in engine.timers.items()})
+              + " calls: " + json.dumps(engine.counters), flush=True)
+    return rec
+
+
+def _symmetrize_weak_registrations(registrations, feats, verbose: bool, weak_total: int = 100):
+    """Reverse edges for weakly anchored images: an image whose own edges
+    total fewer than ``weak_total`` matches gets reversed copies of its
+    strongest incoming edges (where it is the reference), up to MAX_REFS."""
+    by_img = {r.img: r for r in registrations}
+    incoming: Dict[int, list] = {}
+    for r in registrations:
+        for e in r.edges:
+            incoming.setdefault(e.ref_img, []).append((r.img, e))
+    out = list(registrations)
+    for j, inc in incoming.items():
+        reg = by_img.get(j)
+        own = sum(len(e.idx_new) for e in reg.edges) if reg else 0
+        if own >= weak_total:
+            continue
+        have = {e.ref_img for e in reg.edges} if reg else set()
+        added = 0
+        for other, e in sorted(inc, key=lambda t: -len(t[1].idx_new)):
+            if other in have or (reg and len(reg.edges) >= MAX_REFS):
+                continue
+            rev = EdgeObservations(
+                ref_img=other, idx_ref=e.idx_new, idx_new=e.idx_ref, track=e.track,
+                uv_ref=e.uv_new, uv_new=e.uv_ref, colors_ref=feats.colors_bgr[other][e.idx_ref],
+                rel_R=None if e.rel_R is None else np.asarray(e.rel_R).T,
+                rel_t=None if e.rel_R is None else -np.asarray(e.rel_R).T @ np.asarray(e.rel_t))
+            if reg is None:
+                reg = ImageRegistration(img=j, edges=[])
+                by_img[j] = reg
+                out.append(reg)
+            reg.edges.append(rev)
+            have.add(other)
+            added += 1
+        if added and verbose:
+            print(f"[sfm] img {j}: +{added} reverse edges (own anchors {own} matches)",
+                  flush=True)
+    return out
+
+
+def _rescue_pass(engine, feats, ts, adj, cfg, verbose: bool, seed: int = 3, device="cuda",
+                 rounds: int = 64, deregister_round: int = 2) -> List[ImageRegistration]:
+    """Re-match every still-unregistered image against its registered
+    view-graph neighbours (fresh edges, fresh tracks) and register, round
+    after round until a round makes no progress; at ``deregister_round``
+    weak cameras are dropped so their slots are retried. The pair gates of
+    round r draw from seed ``seed * 1000 + r`` (tpu3d splits a key per
+    round) and are kept in a memo across rounds. Returns the rescue
+    registrations."""
+    rescued: List[ImageRegistration] = []
+    batch = max(int(cfg.sfm.register_batch), 1)
+    memo: Dict[Tuple[int, int], np.ndarray] = {}
+    feats = feats.to(device)
+    for rescue_round in range(rounds):
+        if rescue_round == deregister_round:
+            dropped = engine.deregister_weak_cameras()
+            if dropped and verbose:
+                print(f"[sfm] deregistered {len(dropped)} weak cameras mid-rescue: {dropped}",
+                      flush=True)
+        todo = [v for v in range(len(feats.names)) if not engine.has_cam[v]]
+        ref_sets = {v: [r for r in adj.get(v, []) if engine.has_cam[r]][:MAX_REFS] for v in todo}
+        _batch_match_pairs(feats, [(r, v) for v in todo for r in ref_sets[v]], cfg,
+                           seed * 1000 + rescue_round, memo)
+        round_regs = []
+        for v in todo:
+            edges = []
+            for r in ref_sets[v]:
+                a, b = min(r, v), max(r, v)
+                sel, i0, i1, u0, u1, _, nf, rR, rt = _decode_pair(
+                    feats, memo[(a, b)], r, v, reverse=(r != a), cfg=cfg)
+                if sel is not None and nf > cfg.matching.min_inliers:
+                    edges.append(EdgeObservations(
+                        ref_img=r, idx_ref=i0[sel], idx_new=i1[sel],
+                        track=ts.resolve(ts.union_pair(r, v, i0[sel], i1[sel])),
+                        uv_ref=u0[sel].astype(np.float32), uv_new=u1[sel].astype(np.float32),
+                        colors_ref=feats.colors_bgr[r][i0[sel]], rel_R=rR, rel_t=rt))
+            if edges:
+                round_regs.append(ImageRegistration(img=v, edges=edges))
+        infos = engine.register_batch(round_regs, batch=batch)
+        progressed = 0
+        for reg_v, info in zip(round_regs, infos):
+            if info.get("status") == "registered":
+                progressed += 1
+                rescued.append(reg_v)
+            if verbose:
+                print(f"[sfm-rescue] {info}", flush=True)
+        if verbose:
+            print(f"[sfm] rescue round {rescue_round}: +{progressed} registered", flush=True)
+        if progressed == 0:
+            if batch > 1:
+                batch = 1
+                continue
+            break
+        batch = max(int(cfg.sfm.register_batch), 1)
+    return rescued
+
+
+def reconstruct(
+    images: ImageSource,
+    cfg: Optional[PipelineConfig] = None,
+    names: Optional[List[str]] = None,
+    downscale: int = 1,
+    verbose: bool = True,
+    mode: str = "incremental",
+    device="cuda",
+) -> Tuple[Reconstruction, Dict[str, float]]:
+    """The full pipeline: extract → retrieve → match → reconstruct on
+    ``device``. ``images`` is a directory of image files or the decoded
+    ``(gray_u8, rgb_u8)`` arrays. Returns (reconstruction, stage seconds);
+    each stage's time ends in a synchronize."""
+    if mode != "incremental":
+        raise NotImplementedError(f"reconstruct mode {mode!r} is not ported yet (ROADMAP "
+                                  "Queue 1 item 8: global mode)")
+    cfg = cfg or PipelineConfig()
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    timings: Dict[str, float] = {}
+    ext_timers: Dict[str, float] = {}
+    match_timers: Dict[str, object] = {}
+    t0 = time.time()
+    feats = run_extraction(images, cfg, names, downscale, verbose, device=dev, timers=ext_timers)
+    sync()
+    timings["extract"] = time.time() - t0
+    t0 = time.time()
+    adj = run_retrieval(feats, cfg, device=dev)
+    sync()
+    timings["retrieve"] = time.time() - t0
+    t0 = time.time()
+    regs, ts = run_matching(feats, adj, cfg, verbose=verbose, device=dev, timers=match_timers)
+    sync()
+    timings["match"] = time.time() - t0
+    t0 = time.time()
+    rec = run_reconstruction(feats, regs, ts, cfg, verbose=verbose, adj=adj, device=dev)
+    sync()
+    timings["reconstruct"] = time.time() - t0
+    timings["total"] = sum(timings.values())
+    LAST_EXTRACT_TIMERS.clear()
+    LAST_EXTRACT_TIMERS.update({k: round(v, 2) for k, v in ext_timers.items()})
+    LAST_MATCH_TIMERS.clear()
+    LAST_MATCH_TIMERS.update({k: round(v, 2) if isinstance(v, float) else v
+                              for k, v in match_timers.items()})
+    return rec, timings
