@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (tpu3d_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1-3 only
 
 Phases, one line each, any failure exits non-zero:
 
@@ -10,8 +11,13 @@ Phases, one line each, any failure exits non-zero:
   2. build   — nvcc builds every kernel from tpu3d_torch/csrc into
                build/tpu3d_torch, with ptxas' register/shared/spill lines.
   3. kernels — each kernel against its plain PyTorch version on the card at
-               the shapes of the main path: max error, kernel ms (CUDA
-               events over many launches), plain ms, library ms, bound ms.
+               the shapes and inputs of the main path (patch_sample at the
+               detector's and the descriptor's calls on one real extract
+               batch, trilinear at the render and the train shape): max
+               error, bound ms, and for the kernel, its plain version and
+               one library call three numbers each (``_times``): device ms
+               per launch (torch.profiler), wall ms per back-to-back launch
+               (CUDA events) and host µs per call (the enqueue).
   4. slice   — a synthetic 24-view scene (``make_scene``) through
                run_extraction -> run_retrieval -> run_matching on the card,
                with per-stage seconds, match statistics, the relative-rotation
@@ -326,85 +332,167 @@ def _time_ms(torch, fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def _check_patch_sample(torch, dev) -> dict:
-    """patch_sample_kernel against its plain version at the frontend's
-    shapes: one 4-image batch's gradient stack (4 images x 4 octaves x 3
-    levels) and 4 x 2048 keypoints, at the orientation (121), descriptor
-    (256) and detector (27, integer) sample counts."""
+def _times(torch, fn, iters: int, prefix: str = "") -> dict:
+    """The three numbers of a kernel row, for one callable (a kernel's
+    wrapper, its plain version or a library call), after 3 warm-ups:
+
+      ms       device ms per call: torch.profiler's CUDA events (kernels
+               and copies) over ``iters`` calls, summed, over ``iters``
+      wall_ms  wall ms per back-to-back call: CUDA events around ``iters``
+               calls, the median of 5 such batches
+      host_us  host µs per call: the host clock around ``iters`` calls,
+               read before the synchronize (the enqueue alone), the median
+               of 5 batches (the host is shared and noisy)
+
+    When the device outruns the host, wall_ms measures the enqueue and
+    only ms is the kernel's. ``ms`` is None if the profiler saw no CUDA
+    activity."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, hosts = [], []
+    for _ in range(5):
+        walls.append(_time_ms(torch, fn, iters))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        hosts.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    wall, host = statistics.median(walls), statistics.median(hosts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_ms = sum(_device_ms(prof).values()) / iters
+    return {f"{prefix}ms": dev_ms or None, f"{prefix}wall_ms": wall, f"{prefix}host_us": host}
+
+
+_NO_LIBRARY = {"library_ms": None, "library_wall_ms": None, "library_host_us": None}
+
+
+def _fmt_times(row: dict) -> str:
+    def f(x, unit=""):
+        return "not measured" if x is None else f"{x:.4f}{unit}"
+    out = []
+    for who, pre in (("kernel", ""), ("plain", "plain_"), ("library", "library_")):
+        if f"{pre}wall_ms" in row and row[f"{pre}wall_ms"] is not None:
+            out.append(f"{who} device {f(row[pre + 'ms'])} ms / wall {f(row[pre + 'wall_ms'])} "
+                       f"ms / host {row[pre + 'host_us']:.1f} us")
+    return "; ".join(out)
+
+
+def _patch_sample_calls(torch, dev, scene, cfg) -> list:
+    """The arguments of every sample_gradient_patches call that one
+    extract_features call (split descriptor) makes on the first batch of
+    make_scene's views: the detector's 3x3x3 fetch on each octave's DoG
+    stack (S = 27), then the orientation (121) and descriptor (256) passes
+    on the unified gradient stack at the coordinates that
+    features/descriptor.py::_sample_gradients builds."""
+    from tpu3d_torch.features import descriptor, detector, frontend
+
+    real = detector.sample_gradient_patches
+    calls = []
+
+    def record(*args):
+        calls.append(args + (None,) * (6 - len(args)))    # (gx, gy, ys, xs, lvl, dlvl)
+        return real(*args)
+
+    detector.sample_gradient_patches = descriptor.sample_gradient_patches = record
+    try:
+        frontend.extract_features(torch.from_numpy(scene["gray"][: cfg.frontend.batch_size]),
+                                  dataclasses.replace(cfg.frontend, fused_descriptor=None),
+                                  device=dev)
+    finally:
+        detector.sample_gradient_patches = descriptor.sample_gradient_patches = real
+    return calls
+
+
+def _patch_sample_shape(torch, label, gx, gy, ys, xs, lvl, dlvl) -> dict:
+    """One patch_sample shape: the kernel against its plain version (max
+    |err| must be 0), the three numbers for the kernel, the plain version
+    and one 5-D grid_sample, and the bound."""
     import torch.nn.functional as F
 
     from tpu3d_torch.kernels import patch_sample as ps
 
-    L, H, W, K = 48, HEIGHT, WIDTH, 4 * 2048
+    args = (gx, gy, ys, xs, lvl, dlvl)
+    K, S = ys.shape
+    L, H, W = gx.shape
+    out = ps.sample_gradient_patches(*args)
+    ref = ps.sample_gradient_patches_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not err == 0.0:
+        _fail(f"patch_sample_kernel {label}: max |err| {err:.3g} != 0 (kernel and plain "
+              "version round the same operations in the same order)")
+    row = dict(shape=label, K=K, S=S, max_abs_err=err)
+    row.update(_times(torch, lambda: ps.sample_gradient_patches(*args), 100))
+    row.update(_times(torch, lambda: ps.sample_gradient_patches_plain(*args), 10, "plain_"))
+    # Library yardstick: one 5-D grid_sample (trilinear at an integer level
+    # coordinate is the bilinear sample) over the channel stack.
+    chans = [c for c in (gx, gy) if c is not None]
+    nch = len(chans)
+    vol = torch.stack(chans)[None]                                   # (1, C, L, H, W)
+    lz = lvl[:, None].float() + (0.0 if dlvl is None else dlvl[None, :].float())
+    grid = torch.stack([xs / (W - 1) * 2 - 1, ys / (H - 1) * 2 - 1,
+                        lz.expand(K, S) / (L - 1) * 2 - 1], -1)[None, None]
+    row.update(_times(torch, lambda: F.grid_sample(vol, grid, mode="bilinear",
+                                                   align_corners=True), 100, "library_"))
+    del vol, grid
+    # Bound: coordinates, levels and the output once, plus every texel
+    # this run's coordinates touch (the 2x2 cells) once per channel.
+    y0 = ys.floor().long().clamp(0, H - 2)
+    x0 = xs.floor().long().clamp(0, W - 2)
+    lf = (lvl[:, None].long() + (0 if dlvl is None else dlvl[None, :].long())).clamp(0, L - 1)
+    base = (lf * H + y0) * W + x0
+    texels = torch.unique(torch.cat([base, base + 1, base + W, base + W + 1]).reshape(-1)).numel()
+    nbytes = 4 * (2 * K * S + K + (0 if dlvl is None else S) + nch * K * S + nch * texels)
+    flops = 11 * nch * K * S
+    row.update(bound_ms=max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3,
+               bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
+               else "operations")
+    print(f"kernel patch_sample_kernel {label} K={K} S={S} C={nch} stack {L}x{H}x{W}: "
+          f"max_abs_err={err:.3g} bound_ms={row['bound_ms']:.4f} (touched texels {texels}); "
+          + _fmt_times(row), flush=True)
+    return row
+
+
+def _check_patch_sample(torch, dev, scene, cfg) -> dict:
+    """patch_sample_kernel against its plain version at the main path's
+    shapes and coordinates (one extract batch of make_scene: 4 x 2048
+    keypoints): S = 27 on each octave's DoG stack (4 x 5 levels), S = 121
+    and 256 on the unified gradient stack (4 images x 4 octaves x 3
+    levels, two channels). Then, as a stress case, S = 121 and 256 at
+    coordinates drawn uniformly over the whole image, which the main path
+    never sends (each sample's 2x2 cell in its own sectors)."""
+    calls = _patch_sample_calls(torch, dev, scene, cfg)
+    rows = []
+    for args in calls:
+        S = args[2].shape[1]
+        label = f"octave {len(rows)}" if S == 27 else "descriptor" if S == 256 else "orientation"
+        rows.append(_patch_sample_shape(torch, label, *args))
+    gx, gy = calls[-1][0], calls[-1][1]
+    L, H, W = gx.shape
+    K = calls[-1][2].shape[0]
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    gx = torch.randn((L, H, W), generator=g, device=dev)
-    gy = torch.randn((L, H, W), generator=g, device=dev)
     lvl = torch.randint(0, L, (K,), generator=g, device=dev, dtype=torch.int32)
-    worst, rows = 0.0, []
-    for S in (121, 256, 27):
-        if S == 27:   # integer 3x3 neighbourhoods, level offsets -1..1
-            cy = torch.randint(1, H - 1, (K, 1), generator=g, device=dev).float()
-            cx = torch.randint(1, W - 1, (K, 1), generator=g, device=dev).float()
-            off = torch.tensor([(dy, dx) for _ in range(3) for dy in (-1, 0, 1)
-                                for dx in (-1, 0, 1)], device=dev, dtype=torch.float32)
-            ys = (cy + off[None, :, 0]).contiguous()
-            xs = (cx + off[None, :, 1]).contiguous()
-            dlvl = torch.tensor([ds for ds in (-1, 0, 1) for _ in range(9)],
-                                device=dev, dtype=torch.int32)
-            lv = lvl.clamp(1, L - 2).contiguous()
-            chans = (gx, None)
-        else:         # inside the bounds, with a share exactly on the border
-            ys = torch.rand((K, S), generator=g, device=dev) * (H - 1.001)
-            xs = torch.rand((K, S), generator=g, device=dev) * (W - 1.001)
-            ys[:, :8] = 0.0
-            xs[:, 8:16] = W - 1.001
-            ys[:, 16:24] = H - 1.001
-            dlvl, lv, chans = None, lvl, (gx, gy)
-        out = ps.sample_gradient_patches(*chans, ys, xs, lv, dlvl)
-        ref = ps.sample_gradient_patches_plain(*chans, ys, xs, lv, dlvl)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        worst = max(worst, err)
-        if not err <= 1e-5:
-            _fail(f"patch_sample_kernel S={S}: max |err| {err:.3g} > 1e-5")
-        ms = _time_ms(torch, lambda: ps.sample_gradient_patches(*chans, ys, xs, lv, dlvl), 50)
-        plain_ms = _time_ms(torch, lambda: ps.sample_gradient_patches_plain(
-            *chans, ys, xs, lv, dlvl), 10)
-        # Library yardstick: one 5-D grid_sample (trilinear at an integer
-        # level coordinate is the bilinear sample) over the channel stack.
-        nch = 1 if chans[1] is None else 2
-        vol = torch.stack([c for c in chans if c is not None])[None]   # (1, C, L, H, W)
-        lz = lv[:, None].float() + (0.0 if dlvl is None else dlvl[None, :].float())
-        grid = torch.stack([xs / (W - 1) * 2 - 1, ys / (H - 1) * 2 - 1,
-                            lz.expand(K, S) / (L - 1) * 2 - 1], -1)[None, None]
-        lib_ms = _time_ms(torch, lambda: F.grid_sample(
-            vol, grid, mode="bilinear", align_corners=True), 10)
-        # Bound: coordinates, levels and the output once, plus every texel
-        # this run's coordinates touch (the 2x2 cells) once per channel.
-        y0 = ys.floor().long().clamp(0, H - 2)
-        x0 = xs.floor().long().clamp(0, W - 2)
-        lf = (lv[:, None].long() + (0 if dlvl is None else dlvl[None, :].long())).clamp(0, L - 1)
-        base = (lf * H + y0) * W + x0
-        texels = torch.unique(torch.cat([base, base + 1, base + W, base + W + 1]).reshape(-1)).numel()
-        nbytes = 4 * (2 * K * S + K + (0 if dlvl is None else S) + nch * K * S + nch * texels)
-        flops = 11 * nch * K * S
-        bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
-        rows.append(dict(S=S, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
-                         else "operations"))
-        print(f"kernel patch_sample_kernel S={S}: max_abs_err={err:.3g} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} grid_sample_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"(touched texels {texels})", flush=True)
-    # The descriptor pass (S=256) is the main path's largest launch; report it.
-    main = next(r for r in rows if r["S"] == 256)
-    return dict(name="patch_sample_kernel", route="cuda",
+    for S in (121, 256):     # inside the bounds, with a share exactly on the border
+        ys = torch.rand((K, S), generator=g, device=dev) * (H - 1.001)
+        xs = torch.rand((K, S), generator=g, device=dev) * (W - 1.001)
+        ys[:, :8] = 0.0
+        xs[:, 8:16] = W - 1.001
+        ys[:, 16:24] = H - 1.001
+        rows.append(_patch_sample_shape(torch, "stress uniform", gx, gy, ys, xs, lvl, None))
+    # The descriptor pass (S=256) is the main path's largest launch; the row
+    # reports it, and every shape under "shapes".
+    main = next(r for r in rows if r["shape"] == "descriptor")
+    return dict(main, name="patch_sample_kernel", route="cuda",
                 source="tpu3d_torch/csrc/patch_sample.cu",
                 replaces="tpu3d/kernels/patch_sample.py:153",
-                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                max_abs_err=max(r["max_abs_err"] for r in rows), shapes=rows)
 
 
 def _check_top2(torch, dev) -> dict:
@@ -431,30 +519,97 @@ def _check_top2(torch, dev) -> dict:
     n_bad = int(((arg != pa) & clear).sum())
     if n_bad:
         _fail(f"top2_kernel: argmax differs on {n_bad} rows whose top-2 gap is > 1e-5")
-    ms = _time_ms(torch, lambda: dist.descriptor_top2(q, k, vq, vk), 20)
-    plain_ms = _time_ms(torch, lambda: dist.descriptor_top2_plain(q, k, vq, vk), 5)
+    row = dict(_times(torch, lambda: dist.descriptor_top2(q, k, vq, vk), 20),
+               **_times(torch, lambda: dist.descriptor_top2_plain(q, k, vq, vk), 5, "plain_"),
+               **_NO_LIBRARY)
     flops = 2.0 * B * K * K * D
     nbytes = 4.0 * (2 * B * K * D + 2 * B * K + 3 * B * K)
     bound_ms = max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+    ms = row["ms"] or row["wall_ms"]
     print(f"kernel top2_kernel B={B} K={K} D={D}: max_abs_err={err:.3g} near_ties={n_tie} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
-    return dict(name="top2_kernel", route="cuda", source="tpu3d_torch/csrc/top2.cu",
-                replaces="tpu3d/kernels/distance.py:68", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
-                library_ms=None)
+          f"bound_ms={bound_ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s); " + _fmt_times(row),
+          flush=True)
+    return dict(row, name="top2_kernel", route="cuda", source="tpu3d_torch/csrc/top2.cu",
+                replaces="tpu3d/kernels/distance.py:68", max_abs_err=err,
+                bound_ms=bound_ms, bound_by="operations")
 
 
-def _check_trilinear(torch, dev, scene, dense) -> dict:
-    """trilinear_kernel against its plain version at one render launch of
-    the dense phase: the 256^3 x 28 grid and the 8,192 x 192 = 1.57 M
-    sample points of the first chunk of held-out view 4."""
+def _trilinear_shape(torch, label, grid, vol, mn, mx, pts) -> dict:
+    """One trilinear shape: the kernel against its plain version (max |err|
+    0, identical in-bounds flags), the three numbers for the kernel, the
+    plain version and grid_sample on ``vol`` (a channels-first copy of the
+    grid made beforehand), and the bound."""
     import torch.nn.functional as F
 
+    from tpu3d_torch.kernels import trilinear as tri
+
+    out, inb = tri.trilinear_sample(grid, mn, mx, pts)
+    ref, ref_inb = tri.trilinear_sample_plain(grid, mn, mx, pts)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.equal(inb, ref_inb):
+        _fail(f"trilinear_kernel {label}: in-bounds flags differ from the plain version")
+    if not err == 0.0:
+        _fail(f"trilinear_kernel {label}: max |err| {err:.3g} != 0 (kernel and plain version "
+              "round the same operations in the same order)")
+    row = dict(shape=label, N=pts.shape[0], max_abs_err=err)
+    row.update(_times(torch, lambda: tri.trilinear_sample(grid, mn, mx, pts), 50))
+    row.update(_times(torch, lambda: tri.trilinear_sample_plain(grid, mn, mx, pts), 5, "plain_"))
+    # Library yardstick: grid_sample's (x, y, z) coordinate order indexes
+    # (W, H, D) = (Z, Y, X).
+    u = (pts - mn) / (mx - mn) * 2 - 1
+    gs_grid = u.flip(-1).reshape(1, 1, 1, -1, 3).contiguous()
+    row.update(_times(torch, lambda: F.grid_sample(vol, gs_grid, mode="bilinear",
+                                                   align_corners=True), 20, "library_"))
+    # (in the box only: grid_sample blends zero padding in beyond it)
+    lib_diff = float((F.grid_sample(vol, gs_grid, mode="bilinear", align_corners=True)
+                      .reshape(vol.shape[1], -1).T - ref)[inb].abs().max())
+    del ref, gs_grid
+    # Bound: points in, values and flags out, plus each grid row the
+    # in-box samples need (the out-of-box ones need none), once.
+    N, C = out.shape
+    X, Y, Z = grid.shape[:3]
+    i0 = tri._corner_setup((X, Y, Z), mn, mx, pts)[0][inb]
+    base = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+    offs = torch.tensor([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1],
+                        device=pts.device)
+    rows = torch.unique((base[:, None] + offs).reshape(-1)).numel()
+    nbytes = 12 * N + 4 * C * N + N + 4 * C * rows + 24
+    flops = N * (C * 21 + 18)
+    row.update(bound_ms=max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3,
+               bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
+               else "operations")
+    ms = row["ms"] or row["wall_ms"]
+    print(f"kernel trilinear_kernel {label} grid {X}x{Y}x{Z}x{C} N={N} (in box "
+          f"{int(inb.sum())}): max_abs_err={err:.3g} (grid_sample's max diff in the box "
+          f"{lib_diff:.3g}) bound_ms={row['bound_ms']:.4f} (rows touched {rows}, "
+          f"{nbytes / ms / 1e6:.0f} GB/s); " + _fmt_times(row), flush=True)
+    return row
+
+
+def _train_points(torch, dev, cfg, ds):
+    """The 2,048 x 192 = 393,216 jittered sample points of the first batch
+    of training rays (a training step's shape), and the train box."""
+    from tpu3d_torch.dense.render import ray_samples
+
+    mn = torch.full((3,), -cfg.scene_scale, device=dev)
+    mx = torch.full((3,), cfg.scene_scale, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    ro, rd = (torch.from_numpy(a[:cfg.batch_size]).to(dev) for a in (ds.origins, ds.dirs))
+    pts = ray_samples(ro, rd, cfg.near, cfg.far, cfg.num_samples, mn, mx, clip_aabb=True,
+                      perturb=True, generator=g)[0].contiguous()
+    return pts, mn, mx, g
+
+
+def _check_trilinear(torch, dev, scene, dense, cfg, ds) -> dict:
+    """trilinear_kernel against its plain version at both shapes it
+    launches at on the 256^3 x 28 grid: one render launch of the dense
+    phase (the 8,192 x 192 = 1.57 M sample points of the first chunk of
+    held-out view 4) and one training step's forward (2,048 x 192)."""
     from tpu3d_torch.dense.eval import view_rays
     from tpu3d_torch.dense.render import ray_samples
     from tpu3d_torch.dense.train import SceneNormalization
-    from tpu3d_torch.kernels import trilinear as tri
 
     meta = dense["meta"]
     grid = torch.from_numpy(dense["grid"]).to(dev)
@@ -465,50 +620,14 @@ def _check_trilinear(torch, dev, scene, dense) -> dict:
     ro, rd = (torch.from_numpy(a[:DENSE_CHUNK]).to(dev) for a in rays)
     pts = ray_samples(ro, rd, meta["near"], meta["far"], meta["num_samples"], mn, mx,
                       clip_aabb=True)[0].contiguous()
-    out, inb = tri.trilinear_sample(grid, mn, mx, pts)
-    ref, ref_inb = tri.trilinear_sample_plain(grid, mn, mx, pts)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    if not torch.equal(inb, ref_inb):
-        _fail("trilinear_kernel: in-bounds flags differ from the plain version")
-    if not err == 0.0:
-        _fail(f"trilinear_kernel: max |err| {err:.3g} != 0 (kernel and plain version "
-              "round the same operations in the same order)")
-    ms = _time_ms(torch, lambda: tri.trilinear_sample(grid, mn, mx, pts), 50)
-    plain_ms = _time_ms(torch, lambda: tri.trilinear_sample_plain(grid, mn, mx, pts), 5)
-    # Library yardstick: grid_sample on a channels-first copy made beforehand;
-    # its (x, y, z) coordinate order indexes (W, H, D) = (Z, Y, X).
     vol = grid.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
-    u = (pts - mn) / (mx - mn) * 2 - 1
-    gs_grid = u.flip(-1).reshape(1, 1, 1, -1, 3).contiguous()
-    lib_ms = _time_ms(torch, lambda: F.grid_sample(vol, gs_grid, mode="bilinear",
-                                                   align_corners=True), 10)
-    # (in the box only: grid_sample blends zero padding in beyond it)
-    lib_diff = float((F.grid_sample(vol, gs_grid, mode="bilinear", align_corners=True)
-                      .reshape(vol.shape[1], -1).T - ref)[inb].abs().max())
-    del vol
-    # Bound: points in, values and flags out, plus each grid row the
-    # in-box samples need (the out-of-box ones need none), once.
-    N, C = out.shape
-    X, Y, Z = grid.shape[:3]
-    i0 = tri._corner_setup((X, Y, Z), mn, mx, pts)[0][inb]
-    base = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
-    offs = torch.tensor([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1], device=dev)
-    rows = torch.unique((base[:, None] + offs).reshape(-1)).numel()
-    nbytes = 12 * N + 4 * C * N + N + 4 * C * rows + 24
-    flops = N * (C * 21 + 18)
-    bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
-    print(f"kernel trilinear_kernel grid {X}x{Y}x{Z}x{C} N={N} (in box {int(inb.sum())}): "
-          f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"grid_sample_ms={lib_ms:.4f} (max diff in the box {lib_diff:.3g}) "
-          f"bound_ms={bound_ms:.4f} "
-          f"(rows touched {rows}, "
-          f"{nbytes / ms / 1e6:.0f} GB/s)", flush=True)
-    return dict(name="trilinear_kernel", route="cuda", source="tpu3d_torch/csrc/trilinear.cu",
-                replaces="tpu3d/kernels/trilinear.py:82", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
-                else "operations", library_ms=lib_ms)
+    render = _trilinear_shape(torch, "render", grid, vol, mn, mx, pts)
+    tpts, tmn, tmx, _ = _train_points(torch, dev, cfg, ds)
+    train = _trilinear_shape(torch, "train", grid, vol, tmn, tmx, tpts)
+    del vol, grid
+    return dict(render, name="trilinear_kernel", route="cuda",
+                source="tpu3d_torch/csrc/trilinear.cu", replaces="tpu3d/kernels/trilinear.py:82",
+                shapes=[render, train])
 
 
 def _train_inputs(root: str, scene: dict):
@@ -537,19 +656,12 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     sample points of the first batch of training rays, random cotangents."""
     import torch.nn.functional as F
 
-    from tpu3d_torch.dense.render import ray_samples
     from tpu3d_torch.kernels import trilinear as tri
     from tpu3d_torch.kernels import trilinear_grad as tg
 
     R, B, S, C = cfg.grid_resolution, cfg.batch_size, cfg.num_samples, 28
     res = (R, R, R)
-    mn = torch.full((3,), -cfg.scene_scale, device=dev)
-    mx = torch.full((3,), cfg.scene_scale, device=dev)
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    ro, rd = (torch.from_numpy(a[:B]).to(dev) for a in (ds.origins, ds.dirs))
-    pts = ray_samples(ro, rd, cfg.near, cfg.far, S, mn, mx, clip_aabb=True, perturb=True,
-                      generator=g)[0].contiguous()
+    pts, mn, mx, g = _train_points(torch, dev, cfg, ds)
     ct = torch.randn((B * S, C), generator=g, device=dev)
     out = tg.trilinear_scatter_grad(ct, mn, mx, res, pts)
     ref = tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts)
@@ -559,12 +671,13 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     if not err <= 1e-5 * scale:
         _fail(f"trilinear_grad_kernel: max |err| {err:.3g} > 1e-5 x max|plain| {scale:.3g}")
     del out
-    ms = _time_ms(torch, lambda: tg.trilinear_scatter_grad(ct, mn, mx, res, pts), 20)
+    row = _times(torch, lambda: tg.trilinear_scatter_grad(ct, mn, mx, res, pts), 20)
     buf = torch.zeros((R, R, R, C), device=dev)
     scatter_ms = _time_ms(torch, lambda: tg.launch_scatter(ct, mn, mx, pts, buf), 20)
     fill_ms = _time_ms(torch, lambda: buf.zero_(), 20)
     del buf
-    plain_ms = _time_ms(torch, lambda: tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts), 3)
+    row.update(_times(torch, lambda: tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts), 3,
+                      "plain_"))
     # Library yardstick: the backward of one grid_sample (channels-first copy,
     # align_corners) with respect to the grid alone; its (x, y, z) order
     # indexes (W, H, D) = (Z, Y, X). Inside the box it computes this gradient.
@@ -573,7 +686,8 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     gs = F.grid_sample(vol, u.flip(-1).reshape(1, 1, 1, -1, 3), mode="bilinear",
                        align_corners=True)
     go = ct.T.reshape(1, C, 1, 1, -1).contiguous()
-    lib_ms = _time_ms(torch, lambda: torch.autograd.grad(gs, vol, go, retain_graph=True), 10)
+    row.update(_times(torch, lambda: torch.autograd.grad(gs, vol, go, retain_graph=True), 10,
+                      "library_"))
     lib = torch.autograd.grad(gs, vol, go)[0][0].permute(1, 2, 3, 0)
     lib_diff = float((lib - ref).abs().max())
     del vol, gs, go, lib, ref
@@ -590,15 +704,15 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     bound_ms = (4 * C * R ** 3 + in_bytes) / H100_BYTES_PER_S * 1e3
     scatter_bound_ms = (in_bytes + 4 * C * rows) / H100_BYTES_PER_S * 1e3
     print(f"kernel trilinear_grad_kernel grid {R}^3x{C} N={N} (in box {int(inb.sum())}): "
-          f"max_abs_err={err:.3g} (max|plain| {scale:.3g}, ratio {err / scale:.3g}) "
-          f"ms={ms:.4f} with the zero fill (fill alone {fill_ms:.4f}) scatter_ms={scatter_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} grid_sample_backward_ms={lib_ms:.4f} (max diff "
-          f"{lib_diff:.3g}) bound_ms={bound_ms:.4f} scatter_bound_ms={scatter_bound_ms:.4f} "
-          f"(rows touched {rows})", flush=True)
-    return dict(name="trilinear_grad_kernel", route="cuda",
+          f"max_abs_err={err:.3g} (max|plain| {scale:.3g}, ratio {err / scale:.3g}); "
+          f"times with the zero fill (fill alone {fill_ms:.4f} ms, scatter alone "
+          f"{scatter_ms:.4f} ms wall); library = grid_sample's backward (max diff "
+          f"{lib_diff:.3g}); bound_ms={bound_ms:.4f} scatter_bound_ms={scatter_bound_ms:.4f} "
+          f"(rows touched {rows}); " + _fmt_times(row), flush=True)
+    return dict(row, name="trilinear_grad_kernel", route="cuda",
                 source="tpu3d_torch/csrc/trilinear_grad.cu",
-                replaces="tpu3d/kernels/trilinear_grad.py:157", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+                replaces="tpu3d/kernels/trilinear_grad.py:157", max_abs_err=err,
+                bound_ms=bound_ms, bound_by="bytes")
 
 
 def _orient_desc_inputs(torch, dev, scene, cfg):
@@ -657,8 +771,10 @@ def _check_orient_desc(torch, dev, scene, cfg) -> dict:
               f"(max |err| {max_err:.3g}, max|g| {scale:.3g}; their dtheta "
               f"{dth[bad].tolist()[:8]}, sigma {sigma[bad].tolist()[:8]}, err "
               f"{err[bad].max(1).values.tolist()[:8]})")
-    ms = _time_ms(torch, lambda: od.orient_desc_samples(*args), 50)
-    plain_ms = _time_ms(torch, lambda: od.orient_desc_samples_plain(*args), 3)
+    row = dict(_times(torch, lambda: od.orient_desc_samples(*args), 50),
+               **_times(torch, lambda: od.orient_desc_samples_plain(*args), 3, "plain_"),
+               **_NO_LIBRARY)
+    ms = row["ms"] or row["wall_ms"]
     # Bound, by bytes: the keypoint parameters and the outputs once, and
     # every texel of both planes that this run's 121 + 256 samples per
     # keypoint touch (their 2x2 cells), once.
@@ -678,15 +794,16 @@ def _check_orient_desc(torch, dev, scene, cfg) -> dict:
     bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
     print(f"kernel orient_desc_kernel K={K} stack {L}x{H}x{W}: max_abs_err={max_err:.3g} "
           f"(max|g| {scale:.3g}) theta_err={theta_err:.3g} rad; near ties {n_ties}, other peak "
-          f"picked {n_flip}; ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"picked {n_flip}; bound_ms={bound_ms:.4f} "
           f"(touched texels {texels}; every corner of every sample once "
           f"{per_sample_bytes / H100_BYTES_PER_S * 1e3:.4f} ms; "
-          f"{nbytes / ms / 1e6:.0f} GB/s)", flush=True)
-    return dict(name="orient_desc_kernel", route="cuda", source="tpu3d_torch/csrc/orient_desc.cu",
-                replaces="tpu3d/kernels/orient_desc.py:214", max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms,
+          f"{nbytes / ms / 1e6:.0f} GB/s); " + _fmt_times(row), flush=True)
+    return dict(row, name="orient_desc_kernel", route="cuda",
+                source="tpu3d_torch/csrc/orient_desc.cu",
+                replaces="tpu3d/kernels/orient_desc.py:214", max_abs_err=max_err,
+                bound_ms=bound_ms,
                 bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS
-                else "operations", library_ms=None)
+                else "operations")
 
 
 def _align(cams, R_gt, t_gt):
@@ -1103,9 +1220,15 @@ def _profile_slice(torch, dev, scene, cfg) -> None:
               flush=True)
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive tpu3d_torch on one NVIDIA GPU.")
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1-3 only: build, then the kernel rows (launches not counted)")
+    kernels_only = ap.parse_args(list(argv)).kernels
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1149,36 +1272,50 @@ def main() -> int:
         with f32_scope():
             print(f"tf32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
                   f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
-            kernels = [_check_patch_sample(torch, dev), _check_top2(torch, dev),
-                       _check_trilinear(torch, dev, scene, dense),
+            full_cfg = _full_config(scene)
+            kernels = [_check_patch_sample(torch, dev, scene, full_cfg), _check_top2(torch, dev),
+                       _check_trilinear(torch, dev, scene, dense, train_cfg, train_ds),
                        _check_trilinear_grad(torch, dev, train_cfg, train_ds),
-                       _check_orient_desc(torch, dev, scene, _full_config(scene))]
+                       _check_orient_desc(torch, dev, scene, full_cfg)]
         del dense
         torch.cuda.empty_cache()
 
-        cfg = dataclasses.replace(PipelineConfig(),
-                                  camera=CameraConfig(focal_length=scene["focal"]))
-        launches = _run_slice(torch, dev, scene, cfg)
-        _profile_slice(torch, dev, scene, cfg)
-        _run_dense(torch, dev, scene, str(dense_root))
-        # The forward and the scatter rows report the train phase, this
-        # slice's path (the dense phase's count is on its own line).
-        train = _run_train(torch, dev, scene, str(train_root))
-        launches.update(trilinear_kernel=train["trilinear_kernel"],
-                        trilinear_grad_kernel=train["trilinear_grad_kernel"])
-        _profile_train_step(torch, dev, train_cfg, train_ds)
-        # The orient_desc row reports the fused full run (the only path
-        # that launches it).
-        launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
-        _profile_reconstruct(torch, dev, scene)
+        if kernels_only:
+            launches = {row["name"]: None for row in kernels}
+        else:
+            cfg = dataclasses.replace(PipelineConfig(),
+                                      camera=CameraConfig(focal_length=scene["focal"]))
+            launches = _run_slice(torch, dev, scene, cfg)
+            _profile_slice(torch, dev, scene, cfg)
+            _run_dense(torch, dev, scene, str(dense_root))
+            # The forward and the scatter rows report the train phase, this
+            # slice's path (the dense phase's count is on its own line).
+            train = _run_train(torch, dev, scene, str(train_root))
+            launches.update(trilinear_kernel=train["trilinear_kernel"],
+                            trilinear_grad_kernel=train["trilinear_grad_kernel"])
+            _profile_train_step(torch, dev, train_cfg, train_ds)
+            # The orient_desc row reports the fused full run (the only path
+            # that launches it).
+            launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
+            _profile_reconstruct(torch, dev, scene)
     finally:
         shutil.rmtree(dense_root, ignore_errors=True)
         shutil.rmtree(train_root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wall_ms",
+            "host_us", "plain_ms", "plain_wall_ms", "plain_host_us", "bound_ms", "bound_by",
+            "library_ms", "library_wall_ms", "library_host_us")
+    shape_keys = ("shape", "max_abs_err", "ms", "wall_ms", "host_us", "plain_ms", "bound_ms",
+                  "library_ms", "library_wall_ms", "library_host_us")
+    table = []
+    for row in kernels:
+        entry = {k: row[k] for k in keys}
+        if "shapes" in row:
+            entry["shapes"] = [{k: s[k] for k in ("K", "S", "N") + shape_keys if k in s}
+                               for s in row["shapes"]]
+        table.append(entry)
+    print(json.dumps({"kernels": table}))
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -1186,4 +1323,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

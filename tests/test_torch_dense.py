@@ -50,7 +50,7 @@ from tpu3d_torch.dense.render import composite, composite_weights, render_image
 from tpu3d_torch.dense.sdf import ray_aabb, sample_stratified
 from tpu3d_torch.io.artifacts import ArtifactStore
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels.trilinear import trilinear_sample
+from tpu3d_torch.kernels.trilinear import index32, trilinear_sample, vector_width
 
 N_VIEWS, W, H, RES = 8, 96, 64, 32
 
@@ -492,6 +492,27 @@ def test_dense_entry_points_default_to_the_card(no_card, dense_dir):
                  lambda: densify_eval_only(d, scene["rgb"], names, scene["focal"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+@pytest.mark.parametrize("C, ptrs, width", [
+    (28, (0, 1 << 20), 4), (32, (16, 48), 4), (28, (4, 1 << 20), 1), (28, (0, 8), 1),
+    (1, (0, 0), 1), (3, (0, 0), 1), (30, (0, 0), 1), (4, (16, 32), 4)])
+def test_trilinear_vector_width(C, ptrs, width):
+    """float4 loads and stores only where C is a multiple of 4 and the grid
+    and output pointers are 16-byte aligned (a dense grid: C = 28 from the
+    allocator); any other C <= 32 or an unaligned view takes the scalar
+    path of the same kernel."""
+    assert vector_width(C, *ptrs) == width
+
+
+@pytest.mark.parametrize("grid_numel, out_numel, fits", [
+    (256 ** 3 * 28, 8192 * 192 * 28, True), (2 ** 31 - 1, 1, True), (2 ** 31, 1, False),
+    (1, 2 ** 31 - 1, True), (1, 2 ** 31, False), (512 ** 3 * 28, 1, False)])
+def test_trilinear_index32(grid_numel, out_numel, fits):
+    """32-bit grid and output offsets only where X*Y*Z*C and N*C fit in an
+    int32: the dense stage's 256^3 x 28 grid and render chunk do, a 512^3
+    grid does not and takes the 64-bit instantiation of the same kernel."""
+    assert index32(grid_numel, out_numel) is fits
 
 
 def test_trilinear_wrapper_refuses_other_devices():

@@ -44,8 +44,8 @@ def _unit(shape, gen, dev):
 
 def test_patch_sample_kernel_matches_plain(cuda, gen):
     """Two channels and one, with per-sample level offsets, at coordinates
-    beyond the stack too: within 1e-5 abs (the kernel rounds each product
-    as the plain version does, so the two agree to the last bit in practice)."""
+    beyond the stack too: bit for bit (the kernel rounds each product as
+    the plain version does)."""
     L, H, W, K, S = 6, 96, 130, 300, 256
     gx = torch.randn((L, H, W), generator=gen, device=cuda)
     gy = torch.randn((L, H, W), generator=gen, device=cuda)
@@ -59,8 +59,35 @@ def test_patch_sample_kernel_matches_plain(cuda, gen):
         torch.cuda.synchronize()
         ref = sample_gradient_patches_plain(*args)
         assert got.shape == ref.shape
-        assert (got - ref).abs().max().item() <= 1e-5
+        assert torch.equal(got, ref)
     assert LAUNCHES["patch_sample_kernel"] == before + 2
+
+
+@pytest.mark.parametrize("S", [1, 27, 121, 256, 300])
+@pytest.mark.parametrize("two", [False, True], ids=["C1", "C2"])
+@pytest.mark.parametrize("with_dlvl", [False, True], ids=["lvl", "dlvl"])
+def test_patch_sample_kernel_shapes(cuda, gen, S, two, with_dlvl):
+    """The main path's sample counts (1, 27, 121, 256) and one above them,
+    one and two channels, with and without level offsets, K = 301 (K x S
+    not a multiple of the 256-thread block), and coordinates on the last
+    row and column and beyond: max |err| = 0."""
+    L, H, W, K = 5, 40, 57, 301
+    gx = torch.randn((L, H, W), generator=gen, device=cuda)
+    gy = torch.randn((L, H, W), generator=gen, device=cuda) if two else None
+    ys = torch.rand((K, S), generator=gen, device=cuda) * (H + 2) - 1
+    xs = torch.rand((K, S), generator=gen, device=cuda) * (W + 2) - 1
+    ys[::3, 0] = H - 1.0              # the last row and column, exactly
+    xs[1::3, 0] = W - 1.0
+    ys[2::3, -1] = H - 1.001
+    xs[2::3, -1] = W - 1.0
+    lvl = torch.randint(0, L, (K,), generator=gen, device=cuda, dtype=torch.int32)
+    dlvl = (torch.randint(-1, 2, (S,), generator=gen, device=cuda, dtype=torch.int32)
+            if with_dlvl else None)
+    got = sample_gradient_patches(gx, gy, ys, xs, lvl, dlvl)
+    torch.cuda.synchronize()
+    ref = sample_gradient_patches_plain(gx, gy, ys, xs, lvl, dlvl)
+    assert got.shape == ref.shape == (K, 2 if two else 1, S)
+    assert torch.equal(got, ref)
 
 
 def test_neighbors27_on_the_card(cuda, gen):
@@ -141,6 +168,40 @@ def test_trilinear_kernel_equals_plain(cuda, gen, C):
     ref, ref_in = trilinear_sample_plain(grid, mn, mx, pts)
     assert torch.equal(got_in, ref_in) and bool(got_in[:16].all())
     assert 0 < int(got_in.sum()) < N
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("C", [28, 1, 3, 32])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset4"])
+@pytest.mark.parametrize("N", [4001, 8, 0])
+def test_trilinear_kernel_vector_and_scalar_paths(cuda, gen, C, aligned, N):
+    """The float4 path (C % 4 == 0 on a 16-byte aligned grid) and the
+    scalar one (C = 1, 3, or a grid view 4 bytes into its storage, so its
+    pointer is not 16-byte aligned), N not a multiple of the 32 samples a
+    warp takes, one warp's group exactly, and N = 0: bit for bit, flags
+    identical."""
+    from tpu3d_torch.kernels.trilinear import vector_width
+
+    X, Y, Z = 7, 10, 13
+    store = torch.randn(X * Y * Z * C + 1, generator=gen, device=cuda)
+    grid = (store[:-1] if aligned else store[1:]).view(X, Y, Z, C)
+    assert grid.is_contiguous() and (grid.data_ptr() % 16 == 0) == aligned
+    want = 4 if C % 4 == 0 and aligned else 1
+    assert vector_width(C, grid.data_ptr(), torch.empty(16, device=cuda).data_ptr()) == want
+    mn = torch.tensor([-1.0, -2.0, 0.5], device=cuda)
+    mx = torch.tensor([1.0, 0.0, 2.5], device=cuda)
+    pts = mn + (mx - mn) * (torch.rand((N, 3), generator=gen, device=cuda) * 1.2 - 0.1)
+    if N >= 8:
+        pts[:8] = torch.stack([torch.where(torch.tensor([(k >> a) & 1 for a in range(3)],
+                                                        device=cuda) > 0, mx, mn)
+                               for k in range(8)])
+    before = LAUNCHES["trilinear_kernel"]
+    got, got_in = trilinear_sample(grid, mn, mx, pts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["trilinear_kernel"] == before + 1
+    ref, ref_in = trilinear_sample_plain(grid, mn, mx, pts)
+    assert got.shape == ref.shape == (N, C) and got_in.shape == (N,)
+    assert torch.equal(got_in, ref_in)
     assert torch.equal(got, ref)
 
 

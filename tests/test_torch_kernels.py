@@ -10,10 +10,12 @@ import pytest
 import torch
 
 from tpu3d.features.descriptor import _bilinear
+from tpu3d.features.detector import _neighbors27 as jax_neighbors27
 from tpu3d.kernels.distance import descriptor_top2 as jax_top2
 from tpu3d.kernels.patch_sample import sample_gradient_patches as jax_patches
 from tpu3d.matching.mnn import match_descriptors as jax_match
-from tpu3d_torch.features.detector import _neighbors27
+from tpu3d_torch.features.detector import _OFFS27, _neighbors27, offsets27
+from tpu3d_torch.features.frontend import frame_tables
 from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.kernels.distance import descriptor_top2
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches
@@ -82,6 +84,46 @@ def test_neighbors27_is_exact(rng):
     assert len(nb) == 27
     for (ds, dy, dx), vals in nb.items():
         np.testing.assert_array_equal(vals.numpy(), dog[s + ds, y + dy, x + dx])
+
+
+def test_neighbors27_tables_are_cached_and_match_tpu3d(rng):
+    """The detector's offset tables are built once per device, hold the
+    values the per-octave construction made, and give tpu3d's
+    _neighbors27 (its CPU path: plain gathers) key for key."""
+    dev = torch.device("cpu")
+    dys, dxs, dls = offsets27(dev)
+    assert all(a is b for a, b in zip(offsets27(dev), (dys, dxs, dls)))
+    assert torch.equal(dys, torch.tensor([o[1] for o in _OFFS27], dtype=torch.float32))
+    assert torch.equal(dxs, torch.tensor([o[2] for o in _OFFS27], dtype=torch.float32))
+    assert torch.equal(dls, torch.tensor([o[0] for o in _OFFS27], dtype=torch.int32))
+    assert dls.dtype == torch.int32 and dys.dtype == dxs.dtype == torch.float32
+    L, H, W, K = 6, 24, 31, 40
+    dog = rng.normal(0, 1, (L, H, W)).astype(np.float32)
+    s = rng.integers(1, L - 1, K)
+    y = rng.integers(1, H - 2, K)
+    x = rng.integers(1, W - 2, K)
+    got = _neighbors27(t(dog), t(s), t(y), t(x))
+    ref = jax_neighbors27(jnp.asarray(dog), jnp.asarray(s), jnp.asarray(y), jnp.asarray(x))
+    assert list(got) == list(ref)
+    for key, vals in got.items():
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(ref[key]))
+
+
+@pytest.mark.parametrize("H, W, O", [(648, 968, 4), (64, 64, 1), (37, 129, 5)])
+def test_frame_tables_match_the_per_batch_construction(H, W, O):
+    """The frontend's octave sizes and image size, cached per device and
+    shape, equal what it built per batch from Python lists (ceil halving)."""
+    dev = torch.device("cpu")
+    hs, ws, size = frame_tables(H, W, O, dev)
+    assert frame_tables(H, W, O, dev)[0] is hs
+    ref_h, ref_w = [float(H)], [float(W)]
+    for _ in range(1, O):
+        ref_h.append(float(-(-ref_h[-1] // 2)))
+        ref_w.append(float(-(-ref_w[-1] // 2)))
+    assert torch.equal(hs, torch.tensor(ref_h, dtype=torch.float32))
+    assert torch.equal(ws, torch.tensor(ref_w, dtype=torch.float32))
+    assert torch.equal(size, torch.tensor([W, H], dtype=torch.float32))
+    assert hs.tolist() == [float(-(-H // 2 ** o)) for o in range(O)]
 
 
 def _no_ties(best, second, gap=1e-5):

@@ -10,12 +10,19 @@
 // through the read-only cache, and writes (K, C, S).
 //
 // What bounds it: bytes. Each sample moves 8 bytes of coordinates and
-// 4 * C bytes of output against four gathered texels per channel; the
-// gathered cells of one keypoint overlap heavily (a 16x16 grid spans a few
-// dozen rows), so after L1/L2 the device traffic is coordinates + output +
-// the touched texels once. The design keeps the sample axis fastest in the
-// thread index, so coordinate loads and output stores coalesce, and routes
-// the texel reads through __ldg.
+// 4 * C bytes of output against four gathered texels per channel; one
+// keypoint's samples lie in a small box (a few dozen pixels across at the
+// descriptor's 0.75 sigma spacing), so after L1/L2 the device traffic is
+// coordinates + output + the touched texels once. The design keeps the
+// sample axis fastest in the thread index, so coordinate loads and output
+// stores coalesce, and routes the texel reads through __ldg. On the
+// frontend's own coordinates this runs at ~55-60% of that bound on an H100
+// (S = 121 and 256), so the TPU kernel's staged window has no counterpart.
+// A layout with a power of two of warps per keypoint (no division, 32-bit
+// indices) measured no faster at S = 121 / 256 and ~7% slower at S = 27,
+// where a launch is ~3 us of device work and one wave; this one stays.
+// At S = 27 the wrapper's enqueue costs more than the kernel, so
+// kernels/patch_sample.py keeps it short.
 //
 // Semantics are those of tpu3d's gather path (features/descriptor.py
 // ::_bilinear): the base index is clipped to [0, H-2] x [0, W-2] and the
@@ -73,17 +80,30 @@ __global__ void patch_sample_kernel(const float* __restrict__ gx,
 
 }  // namespace
 
-extern "C" int tpu3d_patch_sample(const float* gx, const float* gy, int nch,
-                                  const int* lvl, const int* dlvl,
-                                  const float* ys, const float* xs, float* out,
-                                  int L, int H, int W, int K, int S,
-                                  void* stream) {
-  const int64_t n = (int64_t)K * S;
+// The launch's arguments in one packed block (kernels/patch_sample.py packs
+// them with struct "8Q6i"): one pointer crosses ctypes instead of fourteen
+// converted arguments. dlvl may be null.
+struct PatchSampleArgs {
+  const float* gx;
+  const float* gy;
+  const int* lvl;
+  const int* dlvl;
+  const float* ys;
+  const float* xs;
+  float* out;
+  void* stream;
+  int nch, L, H, W, K, S;
+};
+static_assert(sizeof(PatchSampleArgs) == 88, "layout of struct 8Q6i");
+
+extern "C" int tpu3d_patch_sample(const PatchSampleArgs* a) {
+  const int64_t n = (int64_t)a->K * a->S;
   if (n > 0) {
     const int threads = 256;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    patch_sample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        gx, gy, nch, lvl, dlvl, ys, xs, out, L, H, W, K, S);
+    patch_sample_kernel<<<blocks, threads, 0, (cudaStream_t)a->stream>>>(
+        a->gx, a->gy, a->nch, a->lvl, a->dlvl, a->ys, a->xs, a->out, a->L, a->H, a->W, a->K,
+        a->S);
   }
   return (int)cudaGetLastError();
 }

@@ -55,6 +55,23 @@ def _edge_mask(d: torch.Tensor, edge_threshold: float) -> torch.Tensor:
     return (det > 0) & (tr * tr * r < (r + 1.0) ** 2 * det)
 
 
+_OFFS27_TABLES: dict = {}
+
+
+def offsets27(dev: torch.device):
+    """(dys, dxs, dls): the (27,) offset tables of :data:`_OFFS27` on
+    ``dev`` (float32, float32, int32), built once per device: a table made
+    from a Python list per octave is a pageable host-to-device copy that
+    waits for the stream."""
+    tables = _OFFS27_TABLES.get(dev)
+    if tables is None:
+        tables = _OFFS27_TABLES[dev] = (
+            torch.tensor([o[1] for o in _OFFS27], dtype=torch.float32, device=dev),
+            torch.tensor([o[2] for o in _OFFS27], dtype=torch.float32, device=dev),
+            torch.tensor([o[0] for o in _OFFS27], dtype=torch.int32, device=dev))
+    return tables
+
+
 def _neighbors27(dog: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
                  x: torch.Tensor) -> dict:
     """3x3x3 DoG neighbourhoods of keypoints in one sampling call.
@@ -62,10 +79,7 @@ def _neighbors27(dog: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
     dog: (L, H, W) level stack; s, y, x: (K,) integer level and pixel.
     Returns {(ds, dy, dx): (K,)}. Integer coordinates make the bilinear
     sample exact: the value is dog[s+ds, y+dy, x+dx] inside the stack."""
-    dev = dog.device
-    dys = torch.tensor([o[1] for o in _OFFS27], dtype=torch.float32, device=dev)
-    dxs = torch.tensor([o[2] for o in _OFFS27], dtype=torch.float32, device=dev)
-    dls = torch.tensor([o[0] for o in _OFFS27], dtype=torch.int32, device=dev)
+    dys, dxs, dls = offsets27(dog.device)
     ys = (y.to(torch.float32)[:, None] + dys[None, :]).contiguous()
     xs = (x.to(torch.float32)[:, None] + dxs[None, :]).contiguous()
     vals = sample_gradient_patches(dog, None, ys, xs,

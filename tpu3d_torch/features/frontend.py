@@ -28,6 +28,28 @@ class FeatureSet(NamedTuple):
     image_size: torch.Tensor    # (B, 2) = (W, H)
 
 
+_FRAME_TABLES: dict = {}
+
+
+def frame_tables(H: int, W: int, O: int, dev: torch.device):
+    """(hs, ws, size_wh) on ``dev``, float32: each octave's height and
+    width (O,) (halved with ceiling from H x W) and the image size (W, H).
+    Built once per device and shape: a table made from a Python list per
+    batch is a pageable host-to-device copy that waits for the stream."""
+    key = (dev, H, W, O)
+    tables = _FRAME_TABLES.get(key)
+    if tables is None:
+        hs, ws = [float(H)], [float(W)]
+        for _ in range(1, O):
+            hs.append(float(-(-hs[-1] // 2)))
+            ws.append(float(-(-ws[-1] // 2)))
+        tables = _FRAME_TABLES[key] = (
+            torch.tensor(hs, dtype=torch.float32, device=dev),
+            torch.tensor(ws, dtype=torch.float32, device=dev),
+            torch.tensor([W, H], dtype=torch.float32, device=dev))
+    return tables
+
+
 def _extract_f32(images, max_keypoints, num_octaves, scales_per_octave,
                  sigma0, contrast_threshold, edge_threshold, nms_radius,
                  upright=False, fused=None):
@@ -79,12 +101,9 @@ def _extract_f32(images, max_keypoints, num_octaves, scales_per_octave,
     kx = x.reshape(-1)
     ky = y.reshape(-1)
     sig = sigma_local.reshape(-1)
-    hs, ws = [float(H)], [float(W)]
-    for _ in range(1, O):
-        hs.append(float(-(-hs[-1] // 2)))
-        ws.append(float(-(-ws[-1] // 2)))
-    ymax = (torch.tensor(hs, dtype=torch.float32, device=dev)[oct] - 1.001).reshape(-1)
-    xmax = (torch.tensor(ws, dtype=torch.float32, device=dev)[oct] - 1.001).reshape(-1)
+    hs, ws, size_wh = frame_tables(H, W, O, dev)
+    ymax = (hs[oct] - 1.001).reshape(-1)
+    xmax = (ws[oct] - 1.001).reshape(-1)
     if upright:
         desc = sift_descriptors(gx_u, gy_u, kx, ky, lvl_glob, sig,
                                 torch.zeros_like(sig), ymax, xmax)
@@ -99,7 +118,7 @@ def _extract_f32(images, max_keypoints, num_octaves, scales_per_octave,
     scale = sigma_local * factor
 
     kp_px = torch.stack([x, y], dim=-1)
-    size = torch.tensor([W, H], dtype=torch.float32, device=dev).expand(B, 2)
+    size = size_wh.expand(B, 2)
     kp_centered = pixel_to_centered(kp_px, size[:, None, :])
     return FeatureSet(
         keypoints=kp_centered,

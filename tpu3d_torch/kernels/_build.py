@@ -32,12 +32,12 @@ BUILD_LOG: dict = {"seconds": 0.0, "ptxas": ""}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # gx, gy, nch, lvl, dlvl, ys, xs, out, L, H, W, K, S, stream
-    "tpu3d_patch_sample": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # one packed block of arguments (PatchSampleArgs), built by the wrapper
+    "tpu3d_patch_sample": [ctypes.c_char_p],
     # q, k, vq, vk, best, second, arg, B, K0, K1, D, stream
     "tpu3d_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # grid, min_bound, max_bound, pts, out, in_bounds, X, Y, Z, C, N, stream
-    "tpu3d_trilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _P],
+    # one packed block of arguments (TrilinearArgs), built by the wrapper
+    "tpu3d_trilinear": [ctypes.c_char_p],
     # g, min_bound, max_bound, pts, out, X, Y, Z, C, N, vec, stream
     "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P],
     # gx, gy, ky, kx, lvl, sigma, ymax, xmax, table, gxs, gys, theta, L, H, W, K, stream
@@ -119,6 +119,31 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+_functions: dict = {}
+_raw_stream = None
+
+
+def function(name: str):
+    """The library's C function ``name``, looked up once: a launch does
+    not go through :func:`library`'s lock after the first."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = _functions[name] = getattr(library(), name)
+    return fn
+
+
+def stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device, without
+    building a ``torch.cuda.Stream`` where the build of PyTorch exposes it."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(device_index)
 
 
 def check(err: int, name: str) -> None:

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels._build import check, library
+from tpu3d_torch.kernels._build import check, function, stream
 
 NEG = -2.0
 
@@ -62,10 +62,10 @@ def descriptor_top2(q: torch.Tensor, k: torch.Tensor, vq: torch.Tensor,
     best = torch.empty((B, K0), dtype=torch.float32, device=q.device)
     second = torch.empty_like(best)
     arg = torch.empty((B, K0), dtype=torch.int32, device=q.device)
-    err = library().tpu3d_top2(
+    err = function("tpu3d_top2")(
         q.data_ptr(), k.data_ptr(), vq.data_ptr(), vk.data_ptr(),
         best.data_ptr(), second.data_ptr(), arg.data_ptr(), B, K0, K1, D,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream(q.get_device()))
     check(err, "top2_kernel")
     LAUNCHES["top2_kernel"] += 1
     return best, second, arg

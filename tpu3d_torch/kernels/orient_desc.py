@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels._build import check, library
+from tpu3d_torch.kernels._build import check, function, stream
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches_plain
 
 ORI_N = 121       # 11x11 orientation samples
@@ -173,11 +173,11 @@ def orient_desc_samples(gx, gy, ky, kx, lvl, sigma, ymax, xmax
     gxs = torch.empty((K, DESC_N), dtype=torch.float32, device=gx.device)
     gys = torch.empty_like(gxs)
     theta = torch.empty((K,), dtype=torch.float32, device=gx.device)
-    err = library().tpu3d_orient_desc(
+    err = function("tpu3d_orient_desc")(
         gx.data_ptr(), gy.data_ptr(), ky.data_ptr(), kx.data_ptr(), lvl.data_ptr(),
         sigma.data_ptr(), ymax.data_ptr(), xmax.data_ptr(), _table(gx.device).data_ptr(),
         gxs.data_ptr(), gys.data_ptr(), theta.data_ptr(), L, H, W, K,
-        torch.cuda.current_stream(gx.device).cuda_stream)
+        stream(gx.get_device()))
     check(err, "orient_desc_kernel")
     LAUNCHES["orient_desc_kernel"] += 1
     return gxs, gys, theta

@@ -10,12 +10,19 @@ counterpart here.
 """
 from __future__ import annotations
 
+import struct
 from typing import Optional
 
 import torch
 
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels._build import check, library
+from tpu3d_torch.kernels._build import check, function, stream
+
+_F32, _I32 = torch.float32, torch.int32
+_DTYPES = (_F32, _F32, _F32, _F32, _I32, _I32)     # gx, gy, ys, xs, lvl, dlvl
+# csrc/patch_sample.cu's PatchSampleArgs: gx, gy, lvl, dlvl, ys, xs, out,
+# stream; nch, L, H, W, K, S
+_ARGS = struct.Struct("8Q6i")
 
 
 def _channels(gx, gy):
@@ -65,37 +72,41 @@ def sample_gradient_patches(
 ) -> torch.Tensor:
     """(K, C, S) bilinear samples; see :func:`sample_gradient_patches_plain`
     for the arguments. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``patch_sample_kernel``."""
-    if gx.device.type == "cpu":
-        return sample_gradient_patches_plain(gx, gy, ys, xs, lvl, dlvl)
-    if gx.device.type != "cuda":
+    launches ``patch_sample_kernel``. The detector calls this with a few
+    microseconds of device work, so the checks run in one pass over plain
+    attributes and the C function and stream come without a lock or a
+    Stream object."""
+    if not gx.is_cuda:
+        if gx.device.type == "cpu":
+            return sample_gradient_patches_plain(gx, gy, ys, xs, lvl, dlvl)
         raise ValueError(f"sample_gradient_patches: unsupported device {gx.device}")
-    chans = _channels(gx, gy)
+    dev = gx.get_device()
+    g1 = gx if gy is None else gy
+    dl = lvl if dlvl is None else dlvl
     K, S = ys.shape
     L, H, W = gx.shape
-    for name, t, dt in (("gx", gx, torch.float32), ("ys", ys, torch.float32),
-                        ("xs", xs, torch.float32), ("lvl", lvl, torch.int32)):
-        if t.device != gx.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"sample_gradient_patches: {name} must be a "
-                             f"contiguous {dt} tensor on {gx.device}")
-    if gy is not None and (gy.shape != gx.shape or gy.dtype != torch.float32
-                           or gy.device != gx.device or not gy.is_contiguous()):
-        raise ValueError("sample_gradient_patches: gy must match gx")
-    if xs.shape != (K, S) or lvl.shape != (K,) or H < 2 or W < 2:
+    if ((gx.dtype, g1.dtype, ys.dtype, xs.dtype, lvl.dtype, dl.dtype) != _DTYPES
+            or not (gx.is_contiguous() and g1.is_contiguous() and ys.is_contiguous()
+                    and xs.is_contiguous() and lvl.is_contiguous() and dl.is_contiguous())
+            or not (dev == g1.get_device() == ys.get_device() == xs.get_device()
+                    == lvl.get_device() == dl.get_device())):
+        for name, t, dt in zip(("gx", "gy", "ys", "xs", "lvl", "dlvl"),
+                               (gx, g1, ys, xs, lvl, dl), _DTYPES):
+            if t.dtype is not dt or t.get_device() != dev or not t.is_contiguous():
+                raise ValueError(f"sample_gradient_patches: {name} must be a "
+                                 f"contiguous {dt} tensor on {gx.device}")
+    if ((xs.shape, lvl.shape, dl.shape) != (ys.shape, (K,), (K,) if dlvl is None else (S,))
+            or (gy is not None and gy.shape != gx.shape) or H < 2 or W < 2):
         raise ValueError("sample_gradient_patches: bad shapes "
-                         f"gx {tuple(gx.shape)} ys {tuple(ys.shape)} "
-                         f"xs {tuple(xs.shape)} lvl {tuple(lvl.shape)}")
-    if dlvl is not None and (dlvl.shape != (S,) or dlvl.dtype != torch.int32
-                             or dlvl.device != gx.device
-                             or not dlvl.is_contiguous()):
-        raise ValueError("sample_gradient_patches: dlvl must be (S,) int32 "
-                         "on the same device")
-    out = torch.empty((K, len(chans), S), dtype=torch.float32, device=gx.device)
-    err = library().tpu3d_patch_sample(
-        gx.data_ptr(), chans[-1].data_ptr(), len(chans), lvl.data_ptr(),
-        None if dlvl is None else dlvl.data_ptr(), ys.data_ptr(),
-        xs.data_ptr(), out.data_ptr(), L, H, W, K, S,
-        torch.cuda.current_stream(gx.device).cuda_stream)
+                         f"gx {tuple(gx.shape)} gy {tuple(g1.shape)} ys {tuple(ys.shape)} "
+                         f"xs {tuple(xs.shape)} lvl {tuple(lvl.shape)} dlvl "
+                         f"{None if dlvl is None else tuple(dlvl.shape)} (dlvl must be (S,))")
+    nch = 1 if gy is None else 2
+    out = ys.new_empty((K, nch, S))
+    err = function("tpu3d_patch_sample")(_ARGS.pack(
+        gx.data_ptr(), g1.data_ptr(), lvl.data_ptr(), 0 if dlvl is None else dlvl.data_ptr(),
+        ys.data_ptr(), xs.data_ptr(), out.data_ptr(), stream(dev),
+        nch, L, H, W, K, S))
     check(err, "patch_sample_kernel")
     LAUNCHES["patch_sample_kernel"] += 1
     return out

@@ -16,14 +16,20 @@ padded to 32 channels.
 """
 from __future__ import annotations
 
+import struct
 from typing import Tuple
 
 import torch
 
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels._build import check, library
+from tpu3d_torch.kernels._build import check, function, stream
 
 MAX_CHANNELS = 32
+_F32 = torch.float32
+_INT32_MAX = 2 ** 31 - 1
+# csrc/trilinear.cu's TrilinearArgs: grid, min_bound, max_bound, pts, out,
+# in_bounds, stream; N; X, Y, Z, C, vec, idx32
+_ARGS = struct.Struct("7Qq6i")
 
 
 def _corner_setup(res, min_bound, max_bound, pts):
@@ -71,36 +77,51 @@ def trilinear_sample_plain(grid: torch.Tensor, min_bound: torch.Tensor,
     return out * in_bounds[:, None], in_bounds
 
 
+def index32(grid_numel: int, out_numel: int) -> bool:
+    """Whether ``trilinear_kernel``'s grid (X*Y*Z*C) and output (N*C)
+    offsets fit in an int32, so that it computes them in 32 bits."""
+    return grid_numel <= _INT32_MAX and out_numel <= _INT32_MAX
+
+
+def vector_width(C: int, *ptrs: int) -> int:
+    """Channels per load of ``trilinear_kernel``: 4 (float4 loads and
+    stores) when C is a multiple of 4 and every pointer is 16-byte aligned,
+    so that every corner row and output row starts on a 16-byte boundary;
+    else 1 (csrc/trilinear.cu)."""
+    return 4 if C % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
+
+
 def trilinear_sample(grid: torch.Tensor, min_bound: torch.Tensor,
                      max_bound: torch.Tensor, pts: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values (N, C), in_bounds (N,)); see :func:`trilinear_sample_plain`
     for the arguments. A CPU tensor takes the plain version; a CUDA tensor
     launches ``trilinear_kernel``."""
-    if grid.device.type == "cpu":
-        return trilinear_sample_plain(grid, min_bound, max_bound, pts)
-    if grid.device.type != "cuda":
+    if not grid.is_cuda:
+        if grid.device.type == "cpu":
+            return trilinear_sample_plain(grid, min_bound, max_bound, pts)
         raise ValueError(f"trilinear_sample: unsupported device {grid.device}")
-    if (grid.dim() != 4 or grid.dtype != torch.float32 or not grid.is_contiguous()
+    if (grid.dim() != 4 or grid.dtype is not _F32 or not grid.is_contiguous()
             or min(grid.shape[:3]) < 2 or not 1 <= grid.shape[3] <= MAX_CHANNELS):
         raise ValueError("trilinear_sample: grid must be a contiguous f32 "
                          f"(X, Y, Z, C<={MAX_CHANNELS}) tensor with X, Y, Z >= 2, "
                          f"got {tuple(grid.shape)} {grid.dtype}")
+    dev = grid.get_device()
+    N = pts.shape[0]
     for name, t, shape in (("min_bound", min_bound, (3,)), ("max_bound", max_bound, (3,)),
-                           ("pts", pts, (pts.shape[0], 3))):
-        if (t.device != grid.device or t.dtype != torch.float32 or not t.is_contiguous()
-                or tuple(t.shape) != shape):
+                           ("pts", pts, (N, 3))):
+        if (t.get_device() != dev or t.dtype is not _F32 or not t.is_contiguous()
+                or t.shape != shape):
             raise ValueError(f"trilinear_sample: {name} must be a contiguous f32 "
                              f"{shape} tensor on {grid.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     X, Y, Z, C = grid.shape
-    N = pts.shape[0]
-    out = torch.empty((N, C), dtype=torch.float32, device=grid.device)
+    out = pts.new_empty((N, C))
     in_bounds = torch.empty((N,), dtype=torch.bool, device=grid.device)
-    err = library().tpu3d_trilinear(
+    err = function("tpu3d_trilinear")(_ARGS.pack(
         grid.data_ptr(), min_bound.data_ptr(), max_bound.data_ptr(), pts.data_ptr(),
-        out.data_ptr(), in_bounds.data_ptr(), X, Y, Z, C, N,
-        torch.cuda.current_stream(grid.device).cuda_stream)
+        out.data_ptr(), in_bounds.data_ptr(), stream(dev), N, X, Y, Z, C,
+        vector_width(C, grid.data_ptr(), out.data_ptr()) == 4, index32(X * Y * Z * C, N * C)))
     check(err, "trilinear_kernel")
     LAUNCHES["trilinear_kernel"] += 1
     return out, in_bounds

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels._build import check, library
+from tpu3d_torch.kernels._build import check, function, stream
 from tpu3d_torch.kernels.trilinear import MAX_CHANNELS, _corner_setup, trilinear_sample
 
 
@@ -93,10 +93,10 @@ def launch_scatter(g: torch.Tensor, min_bound: torch.Tensor, max_bound: torch.Te
     the scatter without the fill."""
     X, Y, Z, C = out.shape
     vec = C % 4 == 0 and g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    err = library().tpu3d_trilinear_grad(
+    err = function("tpu3d_trilinear_grad")(
         g.data_ptr(), min_bound.data_ptr(), max_bound.data_ptr(), pts.data_ptr(),
         out.data_ptr(), X, Y, Z, C, g.shape[0], int(vec),
-        torch.cuda.current_stream(g.device).cuda_stream)
+        stream(g.get_device()))
     check(err, "trilinear_grad_kernel")
 
 
