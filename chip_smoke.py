@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only
+    python3 chip_smoke.py --full      # phases 1-2 and 7 only
 
 Phases, one line each, any failure exits non-zero:
 
@@ -109,6 +110,12 @@ TRAIN_LOG_EVERY = 10
 TPU3D_CPU_TRAIN_PSNR = 11.82993530895601
 MAX_TRAIN_PSNR_DIFF_DB = 0.16
 SLICE_KERNELS = ("patch_sample_kernel", "top2_kernel")
+# The split full run before the match kernel's redesign and the fixed-order
+# BA sums (chip_smoke.py on an H100, commit 820136c): registered, points,
+# observations, mean reprojection px as printed. Printed beside this run's;
+# a difference is reported, not failed (the BA's sums now add in another
+# order).
+PR5_FULL_SPLIT = (24, 5250, 46605, "0.1599")
 # The full phase: tpu3d's reconstruct on make_scene(SCENE_SEED) at these
 # shapes on the CPU (default PipelineConfig, the scene's focal in camera and
 # sfm.camera), over three seeds of its draws, as
@@ -376,7 +383,8 @@ def _fmt_times(row: dict) -> str:
     def f(x, unit=""):
         return "not measured" if x is None else f"{x:.4f}{unit}"
     out = []
-    for who, pre in (("kernel", ""), ("plain", "plain_"), ("library", "library_")):
+    for who, pre in (("kernel", ""), ("plain", "plain_"), ("library", "library_"),
+                     ("product", "product_")):
         if f"{pre}wall_ms" in row and row[f"{pre}wall_ms"] is not None:
             out.append(f"{who} device {f(row[pre + 'ms'])} ms / wall {f(row[pre + 'wall_ms'])} "
                        f"ms / host {row[pre + 'host_us']:.1f} us")
@@ -497,7 +505,12 @@ def _check_patch_sample(torch, dev, scene, cfg) -> dict:
 
 def _check_top2(torch, dev) -> dict:
     """top2_kernel against its plain version at one match block: 32 pairs
-    of 2048 x 2048 unit descriptors, D = 128, random validity masks."""
+    of 2048 x 2048 unit descriptors, D = 128, random validity masks,
+    through mutual_top2 (the matcher's call: both directions, one launch).
+    Rows and columns: the argmax must agree wherever the top-2 gap exceeds
+    1e-5. Beside the kernel, the plain version, and as a yardstick the
+    full-f32 torch.bmm of the same product alone (``product_``): not the
+    same function (no masks, no top-2, the matrix stored)."""
     from tpu3d_torch.kernels import distance as dist
 
     B, K, D = 32, 2048, 128
@@ -507,28 +520,37 @@ def _check_top2(torch, dev) -> dict:
     k = torch.nn.functional.normalize(torch.randn((B, K, D), generator=g, device=dev), dim=-1)
     vq = (torch.rand((B, K), generator=g, device=dev) < 0.9).float()
     vk = (torch.rand((B, K), generator=g, device=dev) < 0.9).float()
-    best, second, arg = dist.descriptor_top2(q, k, vq, vk)
-    pb, ps_, pa = dist.descriptor_top2_plain(q, k, vq, vk)
+    best, second, arg, col = dist.mutual_top2(q, k, vq, vk)
+    pb, ps_, pa, pc = dist.mutual_top2_plain(q, k, vq, vk)
+    cb, cs, _ = dist.descriptor_top2_plain(k, q, vk, vq)
     torch.cuda.synchronize()
     err = max(float((best - pb).abs().max()), float((second - ps_).abs().max()))
     if not err <= 1e-5:
         _fail(f"top2_kernel: max |err| of best/second {err:.3g} > 1e-5")
-    # Rows of a masked query score -2 everywhere: both give column 0.
+    # Rows of a masked query (columns of a masked key) score -2 everywhere:
+    # both give index 0.
     clear = ((pb - ps_) > 1e-5) | (vq == 0)
-    n_tie = int((~clear).sum())
+    cclear = ((cb - cs) > 1e-5) | (vk == 0)
+    n_tie, n_ctie = int((~clear).sum()), int((~cclear).sum())
     n_bad = int(((arg != pa) & clear).sum())
-    if n_bad:
-        _fail(f"top2_kernel: argmax differs on {n_bad} rows whose top-2 gap is > 1e-5")
-    row = dict(_times(torch, lambda: dist.descriptor_top2(q, k, vq, vk), 20),
-               **_times(torch, lambda: dist.descriptor_top2_plain(q, k, vq, vk), 5, "plain_"),
+    n_cbad = int(((col != pc) & cclear).sum())
+    if n_bad or n_cbad:
+        _fail(f"top2_kernel: argmax differs on {n_bad} rows and col_arg on {n_cbad} columns "
+              "whose top-2 gap is > 1e-5")
+    del pb, ps_, pa, pc, cb, cs
+    row = dict(_times(torch, lambda: dist.mutual_top2(q, k, vq, vk), 20),
+               **_times(torch, lambda: dist.mutual_top2_plain(q, k, vq, vk), 5, "plain_"),
+               **_times(torch, lambda: torch.bmm(q, k.transpose(1, 2)), 20, "product_"),
                **_NO_LIBRARY)
     flops = 2.0 * B * K * K * D
-    nbytes = 4.0 * (2 * B * K * D + 2 * B * K + 3 * B * K)
+    # q and k, both masks, the rows' (best, second, arg), the columns' keys
+    nbytes = 4.0 * (2 * B * K * D + 2 * B * K + 3 * B * K) + 8.0 * B * K
     bound_ms = max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
     ms = row["ms"] or row["wall_ms"]
-    print(f"kernel top2_kernel B={B} K={K} D={D}: max_abs_err={err:.3g} near_ties={n_tie} "
-          f"bound_ms={bound_ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s); " + _fmt_times(row),
-          flush=True)
+    print(f"kernel top2_kernel B={B} K={K} D={D} (both directions): max_abs_err={err:.3g} "
+          f"near_ties rows {n_tie} columns {n_ctie} bound_ms={bound_ms:.4f} "
+          f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.0%} of the bound); "
+          + _fmt_times(row), flush=True)
     return dict(row, name="top2_kernel", route="cuda", source="tpu3d_torch/csrc/top2.cu",
                 replaces="tpu3d/kernels/distance.py:68", max_abs_err=err,
                 bound_ms=bound_ms, bound_by="operations")
@@ -860,6 +882,8 @@ def _run_full(torch, dev, scene) -> dict:
         reg = rec.registered
         cen, rot = _align(rec.cams, scene["R"][reg], scene["t"][reg])
         runs[name] = dict(registered=len(reg), reproj=rec.mean_reproj_px, launches=launches)
+        same = (len(reg), len(rec.points), rec.num_obs,
+                f"{rec.mean_reproj_px:.4f}") == PR5_FULL_SPLIT
         print(f"full ({name} descriptor): {wall:.3f} s; stage s "
               f"{ {k: round(v, 3) for k, v in secs.items()} }; engine s {timers}; registered "
               f"{len(reg)}/{N_VIEWS} (tpu3d on the CPU {TPU3D_CPU_REGISTERED}), points "
@@ -867,7 +891,9 @@ def _run_full(torch, dev, scene) -> dict:
               f"{rec.mean_reproj_px:.4f} px; camera centre error / spread median "
               f"{np.median(cen):.3g} max {cen.max():.3g}; rotation error median "
               f"{np.median(rot):.4f} max {rot.max():.4f} deg; peak memory "
-              f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+              f"{peak / 2**30:.2f} GiB; launches {launches}; registered, points, "
+              f"observations and reprojection as PR 5's split run {PR5_FULL_SPLIT}: "
+              f"{'yes' if same else 'no'}", flush=True)
         if not np.isfinite(rec.mean_reproj_px) or not np.all(np.isfinite(rec.points)):
             _fail(f"full ({name}): reprojection error or points not finite")
         if len(reg) < TPU3D_CPU_REGISTERED - 1:
@@ -1162,13 +1188,21 @@ def _run_slice(torch, dev, scene, cfg) -> dict:
     for name in SLICE_KERNELS:
         if launches[name] <= 0:
             _fail(f"{name} was not launched on the main path")
+    # one mutual top-2 launch per block of pairs: the gated edges, then any
+    # pairs the 2-hop rescue matched afresh
+    per = cfg.matching.pair_batch
+    blocks = -(-timers["n_edges"] // per) + -(-timers.get("rescue_fresh", 0) // per)
+    if launches["top2_kernel"] != blocks:
+        _fail(f"top2_kernel launched {launches['top2_kernel']} times for {blocks} blocks "
+              "of pairs (one launch per block)")
     errs = rotation_errors_deg(regs, scene["R"])
     n_edges = sum(len(r.edges) for r in regs)
     kpts = feats.valid.sum(axis=1)
     print(f"slice: extract {secs['extract']:.3f} s, retrieve {secs['retrieve']:.3f} s, "
           f"match {secs['match']:.3f} s (gate blocks {timers['gate_blocks']:.3f} s); "
           f"keypoints/image min {kpts.min()} median {int(np.median(kpts))}; "
-          f"edges gated {timers['n_edges']}; images accepted {len(regs)}/{N_VIEWS}; "
+          f"edges gated {timers['n_edges']} ({blocks} blocks); "
+          f"images accepted {len(regs)}/{N_VIEWS}; "
           f"edges {n_edges}; tracks {ts.next_track}; "
           f"rot err median {np.median(errs):.4f} max {errs.max():.4f} deg; "
           f"peak memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
@@ -1226,9 +1260,14 @@ def main(argv=()) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive tpu3d_torch on one NVIDIA GPU.")
-    ap.add_argument("--kernels", action="store_true",
-                    help="phases 1-3 only: build, then the kernel rows (launches not counted)")
-    kernels_only = ap.parse_args(list(argv)).kernels
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--kernels", action="store_true",
+                      help="phases 1-3 only: build, then the kernel rows (launches not counted)")
+    mode.add_argument("--full", action="store_true",
+                      help="phases 1-2 and 7 only: build, then the full runs and the profiled "
+                      "reconstruct (no kernel table)")
+    opts = ap.parse_args(list(argv))
+    kernels_only = opts.kernels
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1256,6 +1295,11 @@ def main(argv=()) -> int:
     scene = make_scene()
     print(f"scene: {N_VIEWS} views {WIDTH}x{HEIGHT} focal {scene['focal']:.1f} "
           f"rendered in {time.time() - t0:.1f} s", flush=True)
+    if opts.full:
+        _run_full(torch, dev, scene)
+        _profile_reconstruct(torch, dev, scene)
+        print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+        return 0
     dense_root = Path(__file__).resolve().parent / "build" / "chip_smoke_dense"
     train_root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     t0 = time.time()
@@ -1311,6 +1355,8 @@ def main(argv=()) -> int:
     table = []
     for row in kernels:
         entry = {k: row[k] for k in keys}
+        entry.update({k: row[k] for k in ("product_ms", "product_wall_ms", "product_host_us")
+                      if k in row})
         if "shapes" in row:
             entry["shapes"] = [{k: s[k] for k in ("K", "S", "N") + shape_keys if k in s}
                                for s in row["shapes"]]

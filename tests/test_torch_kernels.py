@@ -12,12 +12,13 @@ import torch
 from tpu3d.features.descriptor import _bilinear
 from tpu3d.features.detector import _neighbors27 as jax_neighbors27
 from tpu3d.kernels.distance import descriptor_top2 as jax_top2
+from tpu3d.kernels.distance import mutual_nn_pallas as jax_mutual_nn
 from tpu3d.kernels.patch_sample import sample_gradient_patches as jax_patches
 from tpu3d.matching.mnn import match_descriptors as jax_match
 from tpu3d_torch.features.detector import _OFFS27, _neighbors27, offsets27
 from tpu3d_torch.features.frontend import frame_tables
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels.distance import descriptor_top2
+from tpu3d_torch.kernels.distance import descriptor_top2, mutual_top2
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches
 from tpu3d_torch.matching.mnn import match_descriptors
 
@@ -159,8 +160,76 @@ def test_top2_plain_masks_and_ties():
     np.testing.assert_array_equal(arg[0].numpy(), [1, 0, 0])
 
 
+def test_mutual_top2_plain_matches_pallas_interpret(rng):
+    """Both directions against tpu3d's descriptor_top2 in interpret mode,
+    called as mutual_nn_pallas calls it (queries and keys swapped for the
+    column argmax), at K0 = 256, K1 = 512: row best and second within 1e-6,
+    row argmax exactly; col_arg exactly on the columns whose top-2 gap over
+    the rows exceeds 1e-5. Then mutual_nn_pallas' matches against the
+    port's matcher (one mutual_top2 call) on injected correspondences:
+    validity and matched index equal."""
+    d0 = unit(rng, (256, 128))
+    d1 = unit(rng, (512, 128))
+    d1[:200] = d0[:200] + rng.normal(0, 0.05, (200, 128)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    best, second, arg = map(np.asarray, jax_top2(jnp.asarray(d0), jnp.asarray(d1),
+                                                 interpret=True))
+    cbest, csecond, carg = map(np.asarray, jax_top2(jnp.asarray(d1), jnp.asarray(d0),
+                                                    interpret=True))
+    b, s, a, ca = mutual_top2(t(d0)[None], t(d1)[None], torch.ones((1, 256)),
+                              torch.ones((1, 512)))
+    _no_ties(best, second)
+    np.testing.assert_allclose(b[0].numpy(), best, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(s[0].numpy(), second, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(a[0].numpy(), arg)
+    clear = cbest - csecond > 1e-5
+    assert ca.shape == (1, 512) and ca.dtype == torch.int32 and clear.mean() > 0.99
+    np.testing.assert_array_equal(ca[0].numpy()[clear], carg[clear])
+    ones0, ones1 = jnp.ones(256), jnp.ones(512)
+    ref = jax_mutual_nn(jnp.asarray(d0), jnp.asarray(d1), ones0, ones1, interpret=True)
+    got = match_descriptors(t(d0), t(d1), torch.ones(256), torch.ones(512))
+    assert 150 < int(got.valid.sum()) <= 256
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(got.idx1.numpy(), np.asarray(ref.idx1))
+
+
+@pytest.mark.parametrize("K0, K1", [(96, 160), (200, 131)])
+def test_mutual_top2_plain_matches_two_top2_calls(rng, K0, K1):
+    """col_arg against a second descriptor_top2 call with the roles
+    swapped (mnn.py's column argmax), with random masks on both sides:
+    equal on every column whose top-2 gap over the rows exceeds 1e-5, and
+    the row outputs equal to descriptor_top2's."""
+    B, D = 3, 64
+    q, k = unit(rng, (B, K0, D)), unit(rng, (B, K1, D))
+    vq = (rng.random((B, K0)) < 0.85).astype(np.float32)
+    vk = (rng.random((B, K1)) < 0.85).astype(np.float32)
+    b, s, a, ca = mutual_top2(t(q), t(k), t(vq), t(vk))
+    rb, rs, ra = descriptor_top2(t(q), t(k), t(vq), t(vk))
+    cb, cs, cref = descriptor_top2(t(k), t(q), t(vk), t(vq))
+    assert torch.equal(b, rb) and torch.equal(s, rs) and torch.equal(a, ra)
+    clear = (cb - cs > 1e-5) | (t(vk) == 0)     # a masked column: row 0 in both
+    assert ca.shape == (B, K1) and float(clear.float().mean()) > 0.99
+    assert torch.equal(ca[clear], cref[clear])
+    assert bool((ca[t(vk) == 0] == 0).all())
+
+
+def test_mutual_top2_plain_masks_and_ties():
+    """A masked query row gives column 0 and a masked key column row 0;
+    equal scores go to the lowest index in both directions (query rows 0
+    and 3 are equal)."""
+    q = torch.tensor([[[1.0, 0.0], [0.0, 1.0], [0.6, 0.8], [1.0, 0.0]]])
+    k = torch.tensor([[[0.0, 1.0], [1.0, 0.0], [1.0, 0.0], [0.6, 0.8]]])
+    vq = torch.tensor([[1.0, 0.0, 1.0, 1.0]])
+    vk = torch.tensor([[1.0, 1.0, 1.0, 0.0]])
+    best, second, arg, col_arg = mutual_top2(q, k, vq, vk)
+    np.testing.assert_allclose(best[0].numpy(), [1.0, -2.0, 0.8, 1.0], atol=1e-7)
+    np.testing.assert_allclose(second[0].numpy(), [1.0, -2.0, 0.6, 1.0], atol=1e-7)
+    np.testing.assert_array_equal(arg[0].numpy(), [1, 0, 0, 1])
+    np.testing.assert_array_equal(col_arg[0].numpy(), [2, 0, 0, 0])
+
+
 def test_match_descriptors_matches_mnn(rng):
-    """The batched matcher (two top-2 launches per block) against tpu3d's
+    """The batched matcher (one mutual top-2 launch per block) against tpu3d's
     mnn.match_descriptors pair by pair: scores within 1e-6, matched index
     and validity exactly, with injected true correspondences and padding."""
     B, K, D = 3, 256, 128

@@ -298,6 +298,51 @@ def _compare_ba(got, ref, max_iters, gauge_fixed=False):
     np.testing.assert_allclose(got.points.numpy(), ref_pts, atol=pts_tol)
 
 
+@pytest.mark.parametrize("case", ["empty_segments", "single", "large", "no_observations"])
+def test_seg_sum_matches_index_add(case):
+    """BA's fixed-order segment sums against index_add_ on the CPU: within
+    1e-6 of the sum of |x| over each segment (the two add in different
+    orders), exact zeros for segments that nothing lands on, for vector
+    and block-valued rows. Two calls give the same bits."""
+    from tpu3d_torch.ba.lm import _seg_sum, _segments
+
+    rng = np.random.default_rng(11)
+    num = 40
+    if case == "empty_segments":      # every third segment empty
+        idx = rng.choice(np.arange(num)[np.arange(num) % 3 != 0], 500)
+    elif case == "single":            # one observation each, shuffled
+        idx = rng.permutation(num)
+    elif case == "large":             # one segment holds most of them
+        idx = np.where(rng.random(5000) < 0.8, 7, rng.integers(0, num, 5000))
+    else:
+        idx = np.zeros(0, np.int64)
+    idx = torch.from_numpy(idx.astype(np.int64))
+    rows = _segments(idx, num)
+    assert rows.shape == (num, int(torch.bincount(idx, minlength=num).max()) if len(idx) else 0)
+    for shape in ((len(idx),), (len(idx), 6), (len(idx), 6, 6)):
+        x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+        got = _seg_sum(x, rows)
+        ref = torch.zeros((num, *shape[1:])).index_add_(0, idx, x)
+        scale = torch.zeros((num, *shape[1:])).index_add_(0, idx, x.abs())
+        assert got.shape == ref.shape
+        assert bool(((got - ref).abs() <= 1e-6 * scale).all())
+        assert bool((got[scale == 0] == 0).all())
+        assert torch.equal(got, _seg_sum(x, rows))
+
+
+def test_bundle_adjust_card_problem_has_clear_steps():
+    """tests/test_torch_gpu.py's card problem, on the CPU: each of its four
+    LM steps is accepted and cuts the cost by 1e-3 relative or more, far
+    above what f32 sums taken in another order can move, so the card must
+    take the same decisions."""
+    from tests.test_torch_gpu import _BA_KW, _ba_problem
+
+    arrays = [torch.from_numpy(a) for a in _ba_problem()]
+    costs = [bundle_adjust(*arrays, **dict(_BA_KW, max_iters=m)).cost.item()
+             for m in range(5)]
+    assert all(b <= (1.0 - 1e-3) * a for a, b in zip(costs, costs[1:])), costs
+
+
 def test_bundle_adjust_freezes_unobserved_points_and_refuses_variants():
     rng = np.random.default_rng(8)
     p = _ba_problem(rng, n_pts=50)

@@ -5,8 +5,10 @@ gradients (tpu3d/ba/lm.py).
 The normal equations have the arrow structure [[U, W], [Wᵀ, V]] with U
 block-diagonal over cameras (6x6) and V over points (3x3). CG runs on
 S = U - W V⁻¹ Wᵀ without forming it: one S·x is two segment sums over the
-observations and two batched block products. Segment sums are
-``index_add_``. The LM loop and CG stop early as tpu3d's while loops do
+observations and two batched block products. Segment sums add in one fixed
+order (``_segments``), so a solve on the card gives the same bits on every
+run; ``index_add_``'s atomics would not, and one flipped LM accept changes
+the whole trajectory. The LM loop and CG stop early as tpu3d's while loops do
 (the loop conditions read back one scalar each); a rejected step reuses
 the previous blocks, since the state did not move.
 
@@ -38,8 +40,26 @@ def ba_cost(cams, points, cam_idx, pt_idx, uv, w) -> torch.Tensor:
     return torch.sum(r * r)
 
 
-def _seg_sum(x: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
-    return torch.zeros((num, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+def _segments(idx: torch.Tensor, num: int) -> torch.Tensor:
+    """(num, width) int64: row s lists, in ascending order, the positions
+    of idx that hold s, padded with len(idx) (the zero row ``_seg_sum``
+    appends); width is the largest segment. Built once per solve: the
+    index arrays do not change within one. One read-back (the width)."""
+    n = idx.shape[0]
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=num)
+    width = int(counts.max()) if n else 0
+    slot = torch.arange(width, device=idx.device)
+    pos = (torch.cumsum(counts, 0) - counts)[:, None] + slot
+    return torch.where(slot < counts[:, None], order[pos.clamp(max=max(n - 1, 0))], n)
+
+
+def _seg_sum(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Segment sums of x (n, ...) over ``rows`` from :func:`_segments`: a
+    gather to (num, width, ...) and one sum over the width, whose order of
+    additions depends on the shape alone, on the CPU as on the card."""
+    pad = torch.cat([x, x.new_zeros((1, *x.shape[1:]))])
+    return pad[rows].sum(dim=1)
 
 
 def _spd_inv3(V: torch.Tensor, damp: torch.Tensor) -> torch.Tensor:
@@ -107,16 +127,18 @@ def _bundle_adjust(cams0, points0, cam_idx, pt_idx, uv, w, cam_fixed, pt_fixed, 
     if pt_fixed is None:
         pt_fixed = torch.zeros((P,), dtype=dtype, device=dev)
     cam_free = (1.0 - cam_fixed.to(dtype))[:, None]
+    cam_rows = _segments(cam_idx, C)
+    pt_rows = _segments(pt_idx, P)
     # A point with no valid observation must not move (its V block is
     # singular): freeze it too.
-    pt_free = (1.0 - pt_fixed.to(dtype))[:, None] * (_seg_sum(w, pt_idx, P) > 0).to(dtype)[:, None]
+    pt_free = (1.0 - pt_fixed.to(dtype))[:, None] * (_seg_sum(w, pt_rows) > 0).to(dtype)[:, None]
     eye6 = torch.eye(6, dtype=dtype, device=dev)
 
     def seg_cam(x):
-        return _seg_sum(x, cam_idx, C)
+        return _seg_sum(x, cam_rows)
 
     def seg_pt(x):
-        return _seg_sum(x, pt_idx, P)
+        return _seg_sum(x, pt_rows)
 
     def compute_blocks(cams, points):
         r, Jc, Jp = observation_jacobians(cams, points, cam_idx, pt_idx, uv, w)

@@ -34,14 +34,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # one packed block of arguments (PatchSampleArgs), built by the wrapper
     "tpu3d_patch_sample": [ctypes.c_char_p],
-    # q, k, vq, vk, best, second, arg, B, K0, K1, D, stream
-    "tpu3d_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # one packed block of arguments (Top2Args), built by the wrapper
+    "tpu3d_top2": [ctypes.c_char_p],
     # one packed block of arguments (TrilinearArgs), built by the wrapper
     "tpu3d_trilinear": [ctypes.c_char_p],
     # g, min_bound, max_bound, pts, out, X, Y, Z, C, N, vec, stream
     "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P],
-    # gx, gy, ky, kx, lvl, sigma, ymax, xmax, table, gxs, gys, theta, L, H, W, K, stream
-    "tpu3d_orient_desc": [_P] * 12 + [_I, _I, _I, _I, _P],
+    # one packed block of arguments (OrientDescArgs), built by the wrapper
+    "tpu3d_orient_desc": [ctypes.c_char_p],
 }
 
 

@@ -14,6 +14,7 @@ tensor it runs the plain version.
 from __future__ import annotations
 
 import math
+import struct
 from typing import Dict, Tuple
 
 import numpy as np
@@ -26,6 +27,11 @@ from tpu3d_torch.kernels.patch_sample import sample_gradient_patches_plain
 ORI_N = 121       # 11x11 orientation samples
 DESC_N = 256      # 16x16 descriptor samples
 HIST = 36         # orientation histogram bins
+_NAMES = ("gx", "gy", "ky", "kx", "lvl", "sigma", "ymax", "xmax")
+_DTYPES = (torch.float32,) * 4 + (torch.int32,) + (torch.float32,) * 3
+# csrc/orient_desc.cu's OrientDescArgs: gx, gy, ky, kx, lvl, sigma, ymax,
+# xmax, table, gxs, gys, theta, stream; L, H, W, K
+_ARGS = struct.Struct("13Q4i")
 
 
 def _ori_grid() -> np.ndarray:
@@ -150,34 +156,37 @@ def orient_desc_samples(gx, gy, ky, kx, lvl, sigma, ymax, xmax
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gxs, gys, theta); see :func:`orient_desc_samples_plain` for the
     arguments. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``orient_desc_kernel``."""
-    if gx.device.type == "cpu":
-        return orient_desc_samples_plain(gx, gy, ky, kx, lvl, sigma, ymax, xmax)
-    if gx.device.type != "cuda":
+    launches ``orient_desc_kernel``. The checks run in one pass over plain
+    attributes, and the arguments cross ctypes as one packed block."""
+    if not gx.is_cuda:
+        if gx.device.type == "cpu":
+            return orient_desc_samples_plain(gx, gy, ky, kx, lvl, sigma, ymax, xmax)
         raise ValueError(f"orient_desc_samples: unsupported device {gx.device}")
+    dev = gx.get_device()
     L, H, W = gx.shape
     K = ky.shape[0]
     if gy.shape != gx.shape or H < 2 or W < 2:
         raise ValueError(f"orient_desc_samples: bad gradient shapes {tuple(gx.shape)}, "
                          f"{tuple(gy.shape)}")
-    for name, t, dt in (("gx", gx, torch.float32), ("gy", gy, torch.float32),
-                        ("ky", ky, torch.float32), ("kx", kx, torch.float32),
-                        ("lvl", lvl, torch.int32), ("sigma", sigma, torch.float32),
-                        ("ymax", ymax, torch.float32), ("xmax", xmax, torch.float32)):
-        if t.device != gx.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"orient_desc_samples: {name} must be a contiguous {dt} "
-                             f"tensor on {gx.device}")
-        if name not in ("gx", "gy") and t.shape != (K,):
-            raise ValueError(f"orient_desc_samples: {name} must be ({K},), "
-                             f"got {tuple(t.shape)}")
-    gxs = torch.empty((K, DESC_N), dtype=torch.float32, device=gx.device)
-    gys = torch.empty_like(gxs)
-    theta = torch.empty((K,), dtype=torch.float32, device=gx.device)
-    err = function("tpu3d_orient_desc")(
+    args = (gx, gy, ky, kx, lvl, sigma, ymax, xmax)
+    if (tuple(t.dtype for t in args) != _DTYPES
+            or not all(t.is_contiguous() and t.get_device() == dev for t in args)
+            or (ky.shape, kx.shape, lvl.shape, sigma.shape, ymax.shape, xmax.shape)
+            != ((K,),) * 6):
+        for name, t, dt in zip(_NAMES, args, _DTYPES):
+            if t.get_device() != dev or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(f"orient_desc_samples: {name} must be a contiguous {dt} "
+                                 f"tensor on {gx.device}")
+            if name not in ("gx", "gy") and t.shape != (K,):
+                raise ValueError(f"orient_desc_samples: {name} must be ({K},), "
+                                 f"got {tuple(t.shape)}")
+    gxs = gx.new_empty((K, DESC_N))
+    gys = gx.new_empty((K, DESC_N))
+    theta = gx.new_empty((K,))
+    err = function("tpu3d_orient_desc")(_ARGS.pack(
         gx.data_ptr(), gy.data_ptr(), ky.data_ptr(), kx.data_ptr(), lvl.data_ptr(),
         sigma.data_ptr(), ymax.data_ptr(), xmax.data_ptr(), _table(gx.device).data_ptr(),
-        gxs.data_ptr(), gys.data_ptr(), theta.data_ptr(), L, H, W, K,
-        stream(gx.get_device()))
+        gxs.data_ptr(), gys.data_ptr(), theta.data_ptr(), stream(dev), L, H, W, K))
     check(err, "orient_desc_kernel")
     LAUNCHES["orient_desc_kernel"] += 1
     return gxs, gys, theta

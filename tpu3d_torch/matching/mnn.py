@@ -1,10 +1,10 @@
 """Mutual-nearest-neighbor descriptor matching with the Lowe ratio test
 (tpu3d/matching/mnn.py), batched over a leading pair axis.
 
-The similarity statistics come from ``descriptor_top2``: on the card the
-``top2_kernel`` runs twice per block, once as is and once with the roles
-swapped for the column argmax; the ratio, mutual and ``s1 > neg + 1`` tests
-then run in torch exactly as mnn.py:54-69 does.
+The similarity statistics come from ``mutual_top2``: on the card one
+``top2_kernel`` launch per block gives each row's best, second best and
+argmax and each column's argmax; the ratio, mutual and ``s1 > neg + 1``
+tests then run in torch exactly as mnn.py:54-69 does.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpu3d_torch.kernels.distance import NEG, descriptor_top2
+from tpu3d_torch.kernels.distance import NEG, mutual_top2
 
 
 class MatchResult(NamedTuple):
@@ -40,8 +40,7 @@ def match_descriptors(
     d1 = d1.float().contiguous()
     v0 = valid0.float().contiguous()
     v1 = valid1.float().contiguous()
-    s1, s2, best1 = descriptor_top2(d0, d1, v0, v1)
-    _, _, best0_of_1 = descriptor_top2(d1, d0, v1, v0)
+    s1, s2, best1, best0_of_1 = mutual_top2(d0, d1, v0, v1)
     best1 = best1.long()
     dist1 = torch.clamp(2.0 - 2.0 * s1, min=0.0)
     dist2 = torch.clamp(2.0 - 2.0 * s2, min=0.0)
