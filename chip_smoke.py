@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only
-    python3 chip_smoke.py --full      # phases 1-2 and 7 only
+    python3 chip_smoke.py --dense     # phases 1-2 and 5-8 only
+    python3 chip_smoke.py --full      # phases 1-2 and 9 only
 
 Phases, one line each, any failure exits non-zero:
 
@@ -14,7 +15,9 @@ Phases, one line each, any failure exits non-zero:
   3. kernels — each kernel against its plain PyTorch version on the card at
                the shapes and inputs of the main path (patch_sample at the
                detector's and the descriptor's calls on one real extract
-               batch, trilinear at the render and the train shape): max
+               batch, trilinear at the render, the train and the recipe's
+               hierarchical fine shape, and once on a 432^3 x 28 grid, past
+               2^31 values, where the kernel takes int64 offsets): max
                error, bound ms, and for the kernel, its plain version and
                one library call three numbers each (``_times``): device ms
                per launch (torch.profiler), wall ms per back-to-back launch
@@ -40,7 +43,25 @@ Phases, one line each, any failure exits non-zero:
                launches; then one training step under torch.profiler: the
                device time of the forward kernel, the scatter with its fill,
                the Adam update and the elementwise kernels, and the busy share.
-  7. full    — sfm.pipeline.reconstruct (extract -> retrieve -> match ->
+  7. recipe  — densify at tpu3d's dense recipe of record (RECIPE_FLAGS:
+               contraction at core_q 70, hierarchical 64 + 64 samples,
+               256^3 x 28, a coarse 128^3 epoch, two fine epochs, then the
+               cascade's detail grid at the 256^3 budget for one epoch
+               against the frozen result) at ray stride 8: per phase its
+               steps, rays/s and first and last logged loss; the detail
+               grid's shape and box; the PSNR of the fine grid alone and
+               of the base + detail pair against tpu3d's on the CPU; one
+               profiled step of each phase;
+               peak memory; both kernels' launches against the counts the
+               steps give.
+  8. options — densify --hierarchical --occupancy --camera-gate
+               --camera-gate-epoch 1 for 2 epochs at ray stride 4: the
+               occupancy refreshes' steps (tpu3d's cadence, step 513 among
+               them) and occupied share, the gate's probe MSEs and dropped
+               cameras, the PSNR, launches; one held-out view rendered with
+               and without occupancy pruning (PSNR and wall); then a
+               --rays-pkl run on ray files of the same views at stride 16.
+  9. full    — sfm.pipeline.reconstruct (extract -> retrieve -> match ->
                reconstruct) on the 24 views from arrays, at tpu3d's default
                PipelineConfig with the scene's focal, twice: the split
                descriptor, then fused_descriptor=True. Per run: seconds per
@@ -109,6 +130,38 @@ TRAIN_LOG_EVERY = 10
 # must come within twice that.
 TPU3D_CPU_TRAIN_PSNR = 11.82993530895601
 MAX_TRAIN_PSNR_DIFF_DB = 0.16
+# The recipe phase: tpu3d's dense recipe of record (BASELINE.md:530-538:
+# contraction with the cloud's 70th-percentile radius at 0.9, hierarchical
+# 64 + 64 samples, 256^3 x 28, coarse-to-fine) and its two-level cascade
+# (a detail grid at the 256^3 budget against the frozen result), cut in
+# depth: every 8th pixel, 3 epochs of which 1 coarse, 1 detail epoch.
+RECIPE_FLAGS = dict(contraction=True, norm_core_q=70.0, hierarchical=True, epochs=3,
+                    coarse_epochs=1, detail_epochs=1, ray_stride=TRAIN_RAY_STRIDE)
+# Mean held-out PSNR (views 4, 12, 20) of the fine phase's grid alone (the
+# cascade's base) from tpu3d's train_plenoxel (seed 0, what its densify
+# uses) + evaluate_views on the CPU for the same artifacts and flags, as
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_dense_options.py`
+# prints. Over seeds 0, 1, 2 tpu3d gives 16.4618 / 16.4641 / 16.5134 dB, a
+# spread of 0.0516 dB; the port's random streams differ from tpu3d's, so it
+# must come within twice that. The same for the base + detail pair after
+# tpu3d's detail phase (its Pallas kernels in interpret mode on the CPU):
+# 16.4620 / 16.4642 / 16.5136 dB, a spread of 0.0516 dB.
+TPU3D_CPU_RECIPE_PSNR = 16.461823946615507
+MAX_RECIPE_PSNR_DIFF_DB = 0.104
+TPU3D_CPU_CASCADE_PSNR = 16.46198424475713
+MAX_CASCADE_PSNR_DIFF_DB = 0.104
+# The options phase: the README's `densify --hierarchical --occupancy` with
+# the camera gate after epoch 1, 2 epochs at every 4th pixel (823,284 rays,
+# 401 steps an epoch): tpu3d's default occupancy cadence (500 steps, scan
+# chunks of 16) refreshes the occupancy grid at global step 513. Then a
+# --rays-pkl run on the same views' rays at every 16th pixel, 1 epoch.
+OPTIONS_FLAGS = dict(hierarchical=True, occupancy=True, camera_gate=True, camera_gate_epoch=1,
+                     epochs=2, ray_stride=4)
+OPTIONS_REFRESH_STEP = 513
+RAYS_PKL_STRIDE = 16
+# A trilinear row on a grid of more than 2^31 values, which takes the
+# kernel's int64 offsets (what --detail-res 432 would train).
+INT64_RES = 432
 SLICE_KERNELS = ("patch_sample_kernel", "top2_kernel")
 # The split full run before the match kernel's redesign and the fixed-order
 # BA sums (chip_smoke.py on an H100, commit 820136c): registered, points,
@@ -624,11 +677,14 @@ def _train_points(torch, dev, cfg, ds):
     return pts, mn, mx, g
 
 
-def _check_trilinear(torch, dev, scene, dense, cfg, ds) -> dict:
-    """trilinear_kernel against its plain version at both shapes it
+def _check_trilinear(torch, dev, scene, dense, cfg, ds, recipe_cfg, recipe_ds) -> dict:
+    """trilinear_kernel against its plain version at the shapes it
     launches at on the 256^3 x 28 grid: one render launch of the dense
     phase (the 8,192 x 192 = 1.57 M sample points of the first chunk of
-    held-out view 4) and one training step's forward (2,048 x 192)."""
+    held-out view 4), one training step's forward (2,048 x 192) and the
+    recipe's hierarchical fine pass (2,048 x 128 contracted points, the
+    grid over [-2, 2]^3); then once on a 432^3 x 28 grid (2.26e9 values),
+    which takes the kernel's int64 offsets."""
     from tpu3d_torch.dense.eval import view_rays
     from tpu3d_torch.dense.render import ray_samples
     from tpu3d_torch.dense.train import SceneNormalization
@@ -646,10 +702,45 @@ def _check_trilinear(torch, dev, scene, dense, cfg, ds) -> dict:
     render = _trilinear_shape(torch, "render", grid, vol, mn, mx, pts)
     tpts, tmn, tmx, _ = _train_points(torch, dev, cfg, ds)
     train = _trilinear_shape(torch, "train", grid, vol, tmn, tmx, tpts)
+    fpts, fmn, fmx = _recipe_points(torch, dev, grid, recipe_cfg, recipe_ds)
+    fine = _trilinear_shape(torch, "recipe fine", grid, vol, fmn, fmx, fpts)
     del vol, grid
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    big = torch.empty((INT64_RES,) * 3 + (28,), device=dev).uniform_(-1.0, 1.0, generator=g)
+    big_vol = big.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
+    # the first chunk's render points, over the same box: 5% fall outside it
+    int64 = _trilinear_shape(torch, "int64", big, big_vol, mn, mx, pts)
+    del big, big_vol
+    torch.cuda.empty_cache()
     return dict(render, name="trilinear_kernel", route="cuda",
                 source="tpu3d_torch/csrc/trilinear.cu", replaces="tpu3d/kernels/trilinear.py:82",
-                shapes=[render, train])
+                shapes=[render, train, fine, int64])
+
+
+def _recipe_points(torch, dev, grid, cfg, ds):
+    """The 2,048 x 128 contracted sample points of the recipe's first
+    training batch in its hierarchical fine pass: 64 jittered coarse
+    depths (48 stratified, 16 in the disparity tail), 64 importance depths
+    from the coarse pass's weights on ``grid`` over [-2, 2]^3, merged."""
+    from tpu3d_torch.dense.contract import contract
+    from tpu3d_torch.dense.render import composite_weights, ray_samples
+    from tpu3d_torch.dense.sdf import sample_pdf
+    from tpu3d_torch.kernels.trilinear import trilinear_sample_plain
+
+    mn, mx = torch.full((3,), -2.0, device=dev), torch.full((3,), 2.0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    ro, rd = (torch.from_numpy(a[:cfg.batch_size]).to(dev) for a in (ds.origins, ds.dirs))
+    B = ro.shape[0]
+    pts_c, _, z_c = ray_samples(ro, rd, cfg.near, cfg.far, cfg.n_coarse, mn, mx, contract=True,
+                                perturb=True, generator=g)
+    vals, inb = trilinear_sample_plain(grid, mn, mx, pts_c.contiguous())
+    w = composite_weights((torch.relu(vals[:, 0]) * inb).reshape(B, -1), z_c)
+    z = torch.sort(torch.cat([z_c, sample_pdf(z_c, w, cfg.n_fine, generator=g)], -1), -1).values
+    pts = contract(ro[:, None, :] + z[..., None] * rd[:, None, :]).reshape(-1, 3).contiguous()
+    return pts, mn, mx
 
 
 def _train_inputs(root: str, scene: dict):
@@ -670,6 +761,27 @@ def _train_inputs(root: str, scene: dict):
     return (DenseConfig(scene_scale=1.0, near=near, far=far),
             dataset_from_views(cams, scene["rgb"], scene["focal"], train_idx, norm,
                                stride=TRAIN_RAY_STRIDE))
+
+
+def _recipe_inputs(root: str, scene: dict):
+    """(DenseConfig, RayDataset) of the recipe phase's fine phase, prepared
+    as densify prepares them under RECIPE_FLAGS: the contraction's
+    normalization, the sparse cloud's band, the name-keyed holdout."""
+    from tpu3d_torch.cli import registered_views
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import dataset_from_views, split_views_by_name
+    from tpu3d_torch.dense.train import auto_near_far, normalize_scene_contracted
+    from tpu3d_torch.io.artifacts import ArtifactStore
+
+    cams, names, _ = registered_views(root)
+    points = ArtifactStore(root).load("reconstruction")["points"]
+    norm = normalize_scene_contracted(points, core_q=RECIPE_FLAGS["norm_core_q"])
+    near, far = auto_near_far(cams, points, norm)
+    train_idx, _ = split_views_by_name(names, 8)
+    return (DenseConfig(near=near, far=far, hierarchical=True, contraction=True,
+                        per_ray_aabb=False),
+            dataset_from_views(cams, scene["rgb"], scene["focal"], train_idx, norm,
+                               stride=RECIPE_FLAGS["ray_stride"]))
 
 
 def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
@@ -1082,8 +1194,10 @@ def _run_train(torch, dev, scene, root) -> dict:
     return launches
 
 
-def _profile_train_step(torch, dev, cfg, ds) -> None:
-    """Training steps at the train phase's shapes on a fresh 256^3 state:
+def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=None,
+                        base=None) -> None:
+    """Training steps at the train phase's shapes on a fresh 256^3 state
+    (or a ``res`` grid over ``box``, trained against a cascade ``base``):
     10 timed with CUDA events after 3 warm-ups, then one under
     torch.profiler, its device time split by kernel family."""
     from torch.profiler import ProfilerActivity, profile
@@ -1093,17 +1207,17 @@ def _profile_train_step(torch, dev, cfg, ds) -> None:
     from tpu3d_torch.dense.train import init_state, train_step
 
     s = cfg.scene_scale
+    lo, hi = box or ((-s,) * 3, (s,) * 3)
     B = cfg.batch_size
     spe = len(ds.origins) // B
-    state = init_state(cfg, create_grid(cfg.grid_resolution, (-s,) * 3, (s,) * 3, device=dev),
-                       spe)
+    state = init_state(cfg, create_grid(res or cfg.grid_resolution, lo, hi, device=dev), spe)
     o, d, c = (torch.from_numpy(a).to(dev) for a in (ds.origins, ds.dirs, ds.rgb))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     def step(i):
         sl = slice(i % spe * B, (i % spe + 1) * B)
-        return train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen)
+        return train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen, base=base)
 
     with f32_scope():
         for i in range(3):
@@ -1122,7 +1236,7 @@ def _profile_train_step(torch, dev, cfg, ds) -> None:
     per_kernel = _device_ms(prof)
     busy = sum(per_kernel.values())
     if busy == 0.0:
-        print(f"profile train step: {step_ms:.3f} ms per step (CUDA events), host enqueue "
+        print(f"profile {label}: {step_ms:.3f} ms per step (CUDA events), host enqueue "
               f"{host_ms:.3f} ms; wall {wall:.3f} s; device time not measured (the profiler "
               "recorded no CUDA activity)", flush=True)
         return
@@ -1136,13 +1250,255 @@ def _profile_train_step(torch, dev, cfg, ds) -> None:
                else "fill" if "fill" in low or "memset" in low else "other")
         groups[key] += ms
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile train step: {step_ms:.3f} ms per step (CUDA events, 10 steps), host "
+    print(f"profile {label}: {step_ms:.3f} ms per step (CUDA events, 10 steps), host "
           f"enqueue {host_ms:.3f} ms per step; one step profiled: wall {wall * 1e3:.1f} ms, device busy {busy:.2f} ms "
           f"({busy / (wall * 1e3):.1%}); device ms: forward trilinear_kernel "
           f"{groups['trilinear_kernel']:.3f}, scatter trilinear_grad_kernel "
           f"{groups['trilinear_grad_kernel']:.3f} + fills {groups['fill']:.3f}, Adam "
-          f"{groups['adam']:.3f}, elementwise and other {groups['other']:.3f}; top kernels: "
+          f"{groups['adam']:.3f}, elementwise and other (RMSprop's update among them) "
+          f"{groups['other']:.3f}; top kernels: "
           + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top), flush=True)
+
+
+@contextlib.contextmanager
+def _train_calls():
+    """Collects LAST_TRAIN_AUX after each train_plenoxel call that densify
+    makes (the base, then a cascade's detail phase)."""
+    from tpu3d_torch import cli
+    from tpu3d_torch.dense.train import LAST_TRAIN_AUX
+
+    real, calls = cli.train_plenoxel, []
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(dict(LAST_TRAIN_AUX))
+        return out
+
+    cli.train_plenoxel = record
+    try:
+        yield calls
+    finally:
+        cli.train_plenoxel = real
+
+
+def _phase_summary(phase: dict, batch: int) -> str:
+    """One training phase: grid, steps, rays/s between its second and last
+    logged steps (the first pays for warm-up), first and last logged loss."""
+    log = phase["log"]
+    a, b = log[min(1, len(log) - 1)], log[-1]
+    rate = ((b["update"] - a["update"]) * batch / (b["seconds"] - a["seconds"])
+            if b["update"] > a["update"] else float("nan"))
+    return (f"{phase['phase']} {'x'.join(map(str, phase['res']))}: {phase['steps']} steps, "
+            f"{rate:.0f} rays/s, loss {log[0]['loss']:.5f} -> {b['loss']:.5f} "
+            f"({phase['seconds']:.3f} s)")
+
+
+def _check_phases(label: str, phases: list, psnrs) -> None:
+    """Every loss and PSNR finite, and each phase's last logged loss below
+    its first."""
+    losses = [e["loss"] for p in phases for e in p["log"]]
+    if not np.all(np.isfinite(losses + list(psnrs))):
+        _fail(f"{label}: a loss or PSNR is not finite: {losses}, {list(psnrs)}")
+    for p in phases:
+        if not p["log"][-1]["loss"] < p["log"][0]["loss"]:
+            _fail(f"{label}: the {p['phase']} phase's last logged loss "
+                  f"{p['log'][-1]['loss']} is not below its first {p['log'][0]['loss']}")
+
+
+def _eval_chunks(n_views: int) -> int:
+    """trilinear_kernel launches of evaluate_views over n_views views at
+    stride 2 in chunks of DENSE_CHUNK rays, per grid it samples."""
+    n_rays = len(range(0, HEIGHT, 2)) * len(range(0, WIDTH, 2))
+    return n_views * -(-n_rays // DENSE_CHUNK)
+
+
+def _run_recipe(torch, dev, scene, root, cfg, ds) -> dict:
+    """densify at RECIPE_FLAGS on the card (coarse, fine, then the
+    cascade's detail phase, then the pair's held-out evaluation), with the
+    launch counts set to 0 just before it and read just after; then the
+    fine phase's grid alone scored on the same views, and one profiled
+    step of each phase at its shapes (``cfg``, ``ds``: _recipe_inputs)."""
+    from tpu3d_torch.cli import densify
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import evaluate_views, split_views_by_name
+    from tpu3d_torch.dense.grid import grid_from_tpu3d
+    from tpu3d_torch.dense.train import SceneNormalization
+    from tpu3d_torch.io.artifacts import ArtifactStore
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+
+    names = [f"img_{i:03d}.png" for i in range(N_VIEWS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    with _train_calls() as calls:
+        out = densify(root, scene["rgb"], names, scene["focal"], no_checkpoint=True,
+                      final_grid=True, log_every=TRAIN_LOG_EVERY, device=dev, **RECIPE_FLAGS)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    phases = calls[0]["phases"] + calls[1]["phases"]
+    steps = {p["phase"]: p["steps"] for p in phases}
+    store = ArtifactStore(root)
+    dm = store.load_json("dense_meta")
+    base, bg_sh = grid_from_tpu3d(store.load("dense_grid"), dev)
+    cams = store.load("reconstruction")["cams"]
+    _, test_idx = split_views_by_name(names, 8)
+    cfg = DenseConfig(near=dm["near"], far=dm["far"], num_samples=dm["num_samples"],
+                      per_ray_aabb=dm["per_ray_aabb"], contraction=dm["contraction"])
+    norm = SceneNormalization(np.asarray(dm["norm_center"], np.float32), dm["norm_scale"])
+    ev = evaluate_views(base, cams[test_idx], scene["rgb"][test_idx], scene["focal"], cfg, norm,
+                        stride=2, bg_sh=bg_sh)
+    fine_psnr = float(ev["mean_psnr"])
+    cd = dm["cascade_detail"]
+    want = {"trilinear_kernel": 2 * steps["coarse"] + 2 * steps["fine"] + 4 * steps["detail"]
+            + 2 * _eval_chunks(len(out["test_view_names"])),
+            "trilinear_grad_kernel": sum(steps.values())}
+    print(f"recipe: densify {secs:.3f} s (three phases, grid saves and the pair's eval); "
+          + "; ".join(_phase_summary(p, 2048) for p in phases)
+          + f"; detail grid {cd['res']} over {np.round(cd['min_bound'], 4).tolist()}.."
+          f"{np.round(cd['max_bound'], 4).tolist()}; band near {dm['near']:.4f} far "
+          f"{dm['far']:.4f}; PSNR views {out['test_view_names']}: fine grid alone "
+          f"{[round(float(p), 4) for p in ev['per_view']]} mean {fine_psnr:.4f} dB (tpu3d on the "
+          f"CPU {TPU3D_CPU_RECIPE_PSNR}), base + detail {out['test_psnr_per_view']} mean "
+          f"{out['test_psnr']:.4f} dB (tpu3d on the CPU {TPU3D_CPU_CASCADE_PSNR}); peak memory {peak / 2**30:.2f} GiB; launches {launches} "
+          f"(derived from the steps {want})", flush=True)
+    for name, n in want.items():
+        if launches[name] != n:
+            _fail(f"recipe: {name} launched {launches[name]} times, expected {n} from the steps "
+                  f"{steps} and the eval")
+    _check_phases("recipe", phases, [fine_psnr, out["test_psnr"], *out["test_psnr_per_view"]])
+    if not abs(fine_psnr - TPU3D_CPU_RECIPE_PSNR) <= MAX_RECIPE_PSNR_DIFF_DB:
+        _fail(f"recipe: the fine grid's mean PSNR {fine_psnr:.4f} dB is not within "
+              f"{MAX_RECIPE_PSNR_DIFF_DB} dB of tpu3d's {TPU3D_CPU_RECIPE_PSNR}")
+    if not abs(out["test_psnr"] - TPU3D_CPU_CASCADE_PSNR) <= MAX_CASCADE_PSNR_DIFF_DB:
+        _fail(f"recipe: the pair's mean PSNR {out['test_psnr']:.4f} dB is not within "
+              f"{MAX_CASCADE_PSNR_DIFF_DB} dB of tpu3d's {TPU3D_CPU_CASCADE_PSNR}")
+    box = ((-2.0,) * 3, (2.0,) * 3)
+    for label, res, phase_box, optimizer, b in (
+            ("coarse", 128, box, "adam", None), ("fine", 256, box, "adam", None),
+            ("detail", cd["res"], (cd["min_bound"], cd["max_bound"]), "rmsprop", base)):
+        _profile_train_step(torch, dev, dataclasses.replace(cfg, optimizer=optimizer), ds,
+                            f"recipe {label} step", res, phase_box, b)
+    return launches
+
+
+def _tpu3d_refresh_steps(steps_per_epoch: int, epochs: int, chunk: int, every: int,
+                         gate_epoch: int, kept_steps: int) -> list:
+    """The global steps at which tpu3d's loop refreshes the occupancy grid
+    (tpu3d/dense/train.py:823-868): the first scan-chunk boundary at or
+    after each multiple of ``every``; the chunks restart each epoch, over
+    ``kept_steps`` steps from the camera gate's epoch on."""
+    out, step, due = [], 0, every
+    for epoch in range(epochs):
+        n = kept_steps if epoch >= gate_epoch else steps_per_epoch
+        for b in range(0, n, chunk):
+            if step >= due:
+                out.append(step)
+                due += every
+            step += min(chunk, n - b)
+    return out
+
+
+def _run_options(torch, dev, scene, root) -> dict:
+    """densify at OPTIONS_FLAGS on the card (occupancy refreshes, the camera
+    gate, the held-out evaluation), with the launch counts set to 0 just
+    before it and read just after; then one held-out view rendered with
+    and without occupancy pruning, and a --rays-pkl run."""
+    from tpu3d_torch.cli import densify, densify_from_rays
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import dataset_from_views, split_views_by_name, view_rays
+    from tpu3d_torch.dense.grid import grid_from_tpu3d
+    from tpu3d_torch.dense.render import render_image
+    from tpu3d_torch.dense.train import SceneNormalization, psnr
+    from tpu3d_torch.io.artifacts import ArtifactStore
+    from tpu3d_torch.io.raydata import save_ray_dataset
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+
+    names = [f"img_{i:03d}.png" for i in range(N_VIEWS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    with _train_calls() as calls:
+        out = densify(root, scene["rgb"], names, scene["focal"], no_checkpoint=True,
+                      final_grid=True, log_every=TRAIN_LOG_EVERY, device=dev, **OPTIONS_FLAGS)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    aux = calls[0]
+    gate, refreshes = aux["camera_gate"], aux["occupancy_refreshes"]
+    store = ArtifactStore(root)
+    dm = store.load_json("dense_meta")
+    cams = store.load("reconstruction")["cams"]
+    train_idx, test_idx = split_views_by_name(names, 8)
+    per_view = len(range(0, HEIGHT, OPTIONS_FLAGS["ray_stride"])) * len(
+        range(0, WIDTH, OPTIONS_FLAGS["ray_stride"]))
+    spe = len(train_idx) * per_view // 2048
+    kept = (len(train_idx) - len(gate["dropped"])) * per_view // 2048 if gate else spe
+    expect = _tpu3d_refresh_steps(spe, OPTIONS_FLAGS["epochs"], DenseConfig.scan_chunk,
+                                  DenseConfig.occupancy_every, OPTIONS_FLAGS["camera_gate_epoch"],
+                                  kept)
+    probe = len(train_idx) * min(per_view, DenseConfig.camera_gate_probe_rays)
+    want = {"trilinear_kernel": 2 * aux["steps"] + -(-probe // 8192)
+            + _eval_chunks(len(out["test_view_names"])),
+            "trilinear_grad_kernel": aux["steps"]}
+    print(f"options: densify {secs:.3f} s; " + _phase_summary(aux["phases"][0], 2048)
+          + f"; occupancy refreshes at steps {[r['step'] for r in refreshes]} (tpu3d's cadence "
+          f"{expect}) occupied {[round(r['occupied'], 4) for r in refreshes]}; camera gate at "
+          f"epoch {gate and gate['epoch']} step {gate and gate['step']}: probe MSE "
+          f"{gate and [round(m, 5) for m in gate['probe_mse']]} threshold "
+          f"{gate and round(gate['threshold'], 5)}, dropped {out['dropped_cameras']}; PSNR "
+          f"{out['test_psnr_per_view']} mean {out['test_psnr']:.4f} dB; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches} (derived {want})", flush=True)
+    if gate is None:
+        _fail("options: the camera gate did not run")
+    if [r["step"] for r in refreshes] != expect or OPTIONS_REFRESH_STEP not in expect:
+        _fail(f"options: occupancy refreshes at {[r['step'] for r in refreshes]}, tpu3d's "
+              f"cadence {expect} (with step {OPTIONS_REFRESH_STEP})")
+    for name, n in want.items():
+        if launches[name] != n:
+            _fail(f"options: {name} launched {launches[name]} times, expected {n}")
+    _check_phases("options", aux["phases"], [out["test_psnr"], *out["test_psnr_per_view"]])
+    # one held-out view with and without occupancy pruning
+    grid, bg_sh = grid_from_tpu3d(store.load("dense_grid"), dev)
+    norm = SceneNormalization(np.asarray(dm["norm_center"], np.float32), dm["norm_scale"])
+    v = int(test_idx[0])
+    ro, rd = (torch.from_numpy(a).to(dev) for a in view_rays(cams[v], HEIGHT, WIDTH,
+                                                              scene["focal"], norm, stride=2))
+    gt = scene["rgb"][v][::2, ::2].reshape(-1, 3) / 255.0
+    views = {}
+    for prune in (False, True, False, True):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        img = render_image(grid, ro, rd, dm["near"], dm["far"], dm["num_samples"], chunk=DENSE_CHUNK,
+                           clip_aabb=dm["per_ray_aabb"], occ_prune=prune, bg_sh=bg_sh)
+        torch.cuda.synchronize()
+        views[prune] = (psnr(img.cpu().numpy(), gt), time.time() - t1)
+    # --rays-pkl: the same views' rays at every 16th pixel, in the run's frame
+    train = dataset_from_views(cams, scene["rgb"], scene["focal"], train_idx, norm,
+                               stride=RAYS_PKL_STRIDE)
+    test = dataset_from_views(cams, scene["rgb"], scene["focal"], test_idx, norm,
+                              stride=RAYS_PKL_STRIDE)
+    save_ray_dataset(str(Path(root) / "train_rays.npy"), train)
+    save_ray_dataset(str(Path(root) / "test_rays.npy"), test)
+    t1 = time.time()
+    rp = densify_from_rays(str(Path(root) / "rays"), str(Path(root) / "train_rays.npy"),
+                           test_rays_pkl=str(Path(root) / "test_rays.npy"), near=dm["near"],
+                           far=dm["far"], no_checkpoint=True, device=dev)
+    print(f"options: view {names[v]} PSNR unpruned {views[False][0]:.4f} dB in "
+          f"{views[False][1]:.3f} s, occupancy-pruned {views[True][0]:.4f} dB in "
+          f"{views[True][1]:.3f} s; --rays-pkl ({len(train.origins)} rays, 1 epoch, "
+          f"{time.time() - t1:.3f} s): loss {rp['final_loss']:.5f}, test PSNR "
+          f"{rp['test_psnr']:.4f} dB over {len(test.origins)} rays", flush=True)
+    if not np.all(np.isfinite([*views[False], *views[True], rp["final_loss"],
+                               rp["test_psnr"]])):
+        _fail(f"options: the pruned render or the rays-pkl run is not finite: {views}, {rp}")
+    return launches
 
 
 def _run_stages(torch, scene, cfg, dev, around=None):
@@ -1264,8 +1620,11 @@ def main(argv=()) -> int:
     mode.add_argument("--kernels", action="store_true",
                       help="phases 1-3 only: build, then the kernel rows (launches not counted)")
     mode.add_argument("--full", action="store_true",
-                      help="phases 1-2 and 7 only: build, then the full runs and the profiled "
+                      help="phases 1-2 and 9 only: build, then the full runs and the profiled "
                       "reconstruct (no kernel table)")
+    mode.add_argument("--dense", action="store_true",
+                      help="phases 1-2 and 5-8 only: build, then the dense, train, recipe and "
+                      "options phases (no kernel table)")
     opts = ap.parse_args(list(argv))
     kernels_only = opts.kernels
     if not torch.cuda.is_available():
@@ -1300,25 +1659,39 @@ def main(argv=()) -> int:
         _profile_reconstruct(torch, dev, scene)
         print(smi[0] if smi else "nvidia-smi: no output", flush=True)
         return 0
-    dense_root = Path(__file__).resolve().parent / "build" / "chip_smoke_dense"
-    train_root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    build = Path(__file__).resolve().parent / "build"
+    roots = {k: build / f"chip_smoke_{k}" for k in ("dense", "train", "recipe", "options")}
     t0 = time.time()
-    dense = make_dense_artifacts(str(dense_root), scene)
-    shutil.rmtree(train_root, ignore_errors=True)
-    make_reconstruction_artifacts(str(train_root), scene)
-    train_cfg, train_ds = _train_inputs(str(train_root), scene)
+    dense = make_dense_artifacts(str(roots["dense"]), scene)
+    for k in ("train", "recipe", "options"):
+        shutil.rmtree(roots[k], ignore_errors=True)
+        make_reconstruction_artifacts(str(roots[k]), scene)
+    train_cfg, train_ds = _train_inputs(str(roots["train"]), scene)
+    recipe_cfg, recipe_ds = _recipe_inputs(str(roots["recipe"]), scene)
     print(f"dense artifacts: {DENSE_RES}^3 x 28 analytic grid, band near "
           f"{dense['meta']['near']:.4f} far {dense['meta']['far']:.4f}; train inputs: "
           f"{len(train_ds.origins)} rays, band near {train_cfg.near:.4f} far "
-          f"{train_cfg.far:.4f}; written in {time.time() - t0:.1f} s", flush=True)
+          f"{train_cfg.far:.4f}; recipe inputs: {len(recipe_ds.origins)} rays, contracted band "
+          f"near {recipe_cfg.near:.4f} far {recipe_cfg.far:.4f}; written in "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     try:
+        if opts.dense:
+            del dense
+            _run_dense(torch, dev, scene, str(roots["dense"]))
+            _run_train(torch, dev, scene, str(roots["train"]))
+            _profile_train_step(torch, dev, train_cfg, train_ds)
+            _run_recipe(torch, dev, scene, str(roots["recipe"]), recipe_cfg, recipe_ds)
+            _run_options(torch, dev, scene, str(roots["options"]))
+            print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+            return 0
         with f32_scope():
             print(f"tf32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
                   f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
             full_cfg = _full_config(scene)
             kernels = [_check_patch_sample(torch, dev, scene, full_cfg), _check_top2(torch, dev),
-                       _check_trilinear(torch, dev, scene, dense, train_cfg, train_ds),
+                       _check_trilinear(torch, dev, scene, dense, train_cfg, train_ds,
+                                        recipe_cfg, recipe_ds),
                        _check_trilinear_grad(torch, dev, train_cfg, train_ds),
                        _check_orient_desc(torch, dev, scene, full_cfg)]
         del dense
@@ -1331,20 +1704,22 @@ def main(argv=()) -> int:
                                       camera=CameraConfig(focal_length=scene["focal"]))
             launches = _run_slice(torch, dev, scene, cfg)
             _profile_slice(torch, dev, scene, cfg)
-            _run_dense(torch, dev, scene, str(dense_root))
-            # The forward and the scatter rows report the train phase, this
-            # slice's path (the dense phase's count is on its own line).
-            train = _run_train(torch, dev, scene, str(train_root))
+            _run_dense(torch, dev, scene, str(roots["dense"]))
+            # The forward and the scatter rows report the train phase (the
+            # dense, recipe and options phases' counts are on their lines).
+            train = _run_train(torch, dev, scene, str(roots["train"]))
             launches.update(trilinear_kernel=train["trilinear_kernel"],
                             trilinear_grad_kernel=train["trilinear_grad_kernel"])
             _profile_train_step(torch, dev, train_cfg, train_ds)
+            _run_recipe(torch, dev, scene, str(roots["recipe"]), recipe_cfg, recipe_ds)
+            _run_options(torch, dev, scene, str(roots["options"]))
             # The orient_desc row reports the fused full run (the only path
             # that launches it).
             launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
             _profile_reconstruct(torch, dev, scene)
     finally:
-        shutil.rmtree(dense_root, ignore_errors=True)
-        shutil.rmtree(train_root, ignore_errors=True)
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wall_ms",

@@ -42,7 +42,7 @@ from tpu3d.dense.sdf import ray_aabb as jax_ray_aabb
 from tpu3d.dense.sdf import sample_stratified as jax_sample_stratified
 from tpu3d.io.artifacts import ArtifactStore as JaxStore
 from tpu3d.kernels.trilinear import pack_grid, sample_packed
-from tpu3d_torch.cli import densify_eval_only, main, render_artifacts
+from tpu3d_torch.cli import densify, densify_eval_only, densify_from_rays, main, render_artifacts
 from tpu3d_torch.core import lie
 from tpu3d_torch.dense import grid as TG
 from tpu3d_torch.dense.contract import contract
@@ -350,10 +350,27 @@ def test_render_image_matches_tpu3d(rng, case):
     assert got.std() > 0.05                     # the sphere is in view
 
 
-def test_occupancy_pruned_render_is_not_ported():
-    g = TG.create_grid(8, [-1, -1, -1], [1, 1, 1])
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        render_image(g, torch.zeros(2, 3), torch.ones(2, 3), 0.1, 1.0, 8, occ_prune=True)
+def test_occupancy_pruned_render_is_not_ported(rng):
+    """Occupancy-pruned rendering, refused before the port had
+    dense/occupancy.py, now renders as tpu3d's render_image(occ_prune=True)
+    (XLA route) does, within 1e-5, for rays with an unclipped band: a band
+    that ends outside the box keeps its first and last probes and its last
+    depths off the box's faces, where rounding would decide whether they
+    count (tests/test_torch_dense_options.py holds clipped bands and the
+    samplers to tpu3d's)."""
+    g = np.zeros((16, 16, 16, 28), np.float32)
+    g[..., 1:] = rng.normal(0, 0.3, (16, 16, 16, 27))
+    g[6:10, 5:11, 7:9, 0] = 4.0
+    vg = TG.VoxelGrid(t(g), t(np.full(3, -1.0, np.float32)), t(np.full(3, 1.0, np.float32)))
+    o = rng.normal(0, 1, (40, 3)).astype(np.float32)
+    o = (2.5 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    d = (-o / 2.5).astype(np.float32)
+    got = render_image(vg, t(o), t(d), 0.1, 4.5, 16, occ_prune=True)
+    ref = jax_render_image(JaxGrid(*(jnp.asarray(x.numpy()) for x in vg)),
+                           jax.random.PRNGKey(0), jnp.asarray(o), jnp.asarray(d), 0.1, 4.5, 16,
+                           use_pallas=False, occ_prune=True)
+    assert np.isfinite(got.numpy()).all() and got.numpy().std() > 0.01
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------------------
@@ -446,7 +463,7 @@ def test_cli_commands_on_the_cpu(dense_dir, tmp_path, capsys):
     """The argparse commands: densify --eval-only prints dense_result;
     render writes PNGs; densify without --eval-only trains on a fresh
     reconstruction and writes tpu3d's dense artifacts, and refuses a
-    training option that is not ported."""
+    training option that is not ported (--model sdf)."""
     d, scene = dense_dir
     images = tmp_path / "images"
     images.mkdir()
@@ -465,8 +482,8 @@ def test_cli_commands_on_the_cpu(dense_dir, tmp_path, capsys):
     train = tmp_path / "train"
     chip_smoke.make_reconstruction_artifacts(str(train), scene)
     common[3] = str(train)
-    with pytest.raises(NotImplementedError, match="occupancy.*7c"):
-        main(["densify", *common, "--occupancy"])
+    with pytest.raises(NotImplementedError, match="sdf.*7d"):
+        main(["densify", *common, "--model", "sdf"])
     main(["densify", *common, "--grid-resolution", "16", "--ray-stride", "8",
           "--num-samples", "16", "--quiet"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -489,7 +506,9 @@ def test_dense_entry_points_default_to_the_card(no_card, dense_dir):
     d, scene = dense_dir
     names = [f"img_{i:03d}.png" for i in range(N_VIEWS)]
     for call in (lambda: render_artifacts(d, (H, W), scene["focal"]),
-                 lambda: densify_eval_only(d, scene["rgb"], names, scene["focal"])):
+                 lambda: densify_eval_only(d, scene["rgb"], names, scene["focal"]),
+                 lambda: densify(d, scene["rgb"], names, scene["focal"], contraction=True),
+                 lambda: densify_from_rays(d, "rays.npy")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -280,6 +280,58 @@ def test_trilinear_grad_kernel_matches_plain(cuda, gen, C):
         assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
 
 
+def _step_on_card_and_cpu(cuda, gen, cfg, grid, lo, hi, occ=None, base=None):
+    """One training step on the card and the same step on the CPU (plain
+    versions) with the same injected random numbers: (states, losses,
+    trilinear and scatter launches of the card's step)."""
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    o = torch.zeros((256, 3), device=cuda)
+    o[:, 0] = -2.0
+    d = torch.nn.functional.normalize(torch.randn((256, 3), generator=gen, device=cuda) * 0.4
+                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
+    rgb = torch.rand((256, 3), generator=gen, device=cuda)
+    cid = torch.randint(0, 4, (256,), generator=gen, device=cuda)
+    noise = TT.draw_step_noise(cfg, grid.shape, 256, gen, cuda)
+    states, losses, launched = [], [], None
+    for dev in (cuda, torch.device("cpu")):
+        before = (LAUNCHES["trilinear_kernel"], LAUNCHES["trilinear_grad_kernel"])
+        st = TT.init_state(cfg, VoxelGrid(grid.clone().to(dev), torch.tensor(lo, device=dev),
+                                          torch.tensor(hi, device=dev)), 5, 4)
+        losses.append(float(TT.train_step(
+            st, cfg, o.to(dev), d.to(dev), rgb.to(dev), cid.to(dev),
+            noise=TT.StepNoise(*(None if x is None else x.to(dev) for x in noise)),
+            occ=None if occ is None else occ.to(dev),
+            base=None if base is None else VoxelGrid(*(x.to(dev) for x in base)))))
+        states.append(st)
+        launched = launched or (LAUNCHES["trilinear_kernel"] - before[0],
+                                LAUNCHES["trilinear_grad_kernel"] - before[1])
+    return states, losses, launched
+
+
+def _assert_steps_agree(states, losses, grid, optimizer="adam"):
+    """Loss within 1e-5 relative; the optimizer's moments and the latents
+    within 1e-5 x their size (2e-5 for Adam's squared moment); the grid
+    within 5e-4 (see test_train_step_on_the_card)."""
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    a, b = states
+    pa, pb = a.grid.grid, b.grid.grid
+    if optimizer == "rmsprop":
+        pairs = [(pa, pb, None), (a.optimizer.state[pa]["nu"], b.optimizer.state[pb]["nu"], 2e-5)]
+    else:
+        pairs = [(pa, pb, None),
+                 (a.optimizer.state[pa]["exp_avg"], b.optimizer.state[pb]["exp_avg"], 1e-5),
+                 (a.optimizer.state[pa]["exp_avg_sq"], b.optimizer.state[pb]["exp_avg_sq"],
+                  2e-5)]
+    pairs += [(x, y, 1e-5) for x, y in ((a.exposure, b.exposure), (a.background, b.background))
+              if x is not None]
+    for k, (x, y, tol) in enumerate(pairs):
+        diff = (x.detach().cpu() - y.detach()).abs().max().item()
+        assert diff <= (5e-4 if tol is None else tol * y.detach().abs().max().item()), (k, diff)
+    assert (pa.detach().cpu() - grid.cpu()).abs().max().item() > 1e-3
+
+
 @pytest.mark.parametrize("hierarchical", [False, True])
 def test_train_step_on_the_card(cuda, gen, hierarchical):
     """One training step with every in-slice prior and latent on, through
@@ -293,43 +345,48 @@ def test_train_step_on_the_card(cuda, gen, hierarchical):
     change of g moves the voxel by a share of lr (measured on an H100: one
     voxel of 114,688 by 1.7e-5)."""
     from tpu3d_torch.config import DenseConfig
-    from tpu3d_torch.dense import train as TT
-    from tpu3d_torch.dense.grid import VoxelGrid
 
     cfg = DenseConfig(grid_resolution=16, batch_size=256, num_samples=16, near=0.5, far=4.0,
                       n_coarse=8, n_fine=8, hierarchical=hierarchical, tv_sigma=0.3,
                       tv_sh=0.05, sparsity_sigma=0.02, exposure=True, sh_background=True)
     grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
     grid[..., 0] = torch.randn((16, 16, 16), generator=gen, device=cuda) * 2.0
-    o = torch.zeros((256, 3), device=cuda)
-    o[:, 0] = -2.0
-    d = torch.nn.functional.normalize(torch.randn((256, 3), generator=gen, device=cuda) * 0.4
-                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
-    rgb = torch.rand((256, 3), generator=gen, device=cuda)
-    cid = torch.randint(0, 4, (256,), generator=gen, device=cuda)
-    noise = TT.draw_step_noise(cfg, grid.shape, 256, gen, cuda)
-    states, losses = [], []
-    before = (LAUNCHES["trilinear_kernel"], LAUNCHES["trilinear_grad_kernel"])
-    for dev in (cuda, torch.device("cpu")):
-        st = TT.init_state(cfg, VoxelGrid(grid.clone().to(dev), torch.full((3,), -1.5, device=dev),
-                                          torch.full((3,), 1.5, device=dev)), 5, 4)
-        losses.append(float(TT.train_step(st, cfg, o.to(dev), d.to(dev), rgb.to(dev),
-                                          cid.to(dev),
-                                          noise=TT.StepNoise(*(None if x is None else x.to(dev)
-                                                               for x in noise)))))
-        states.append(st)
-    assert LAUNCHES["trilinear_kernel"] == before[0] + (2 if hierarchical else 1)
-    assert LAUNCHES["trilinear_grad_kernel"] == before[1] + 1
-    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
-    (a, b) = states
-    pa, pb = a.grid.grid, b.grid.grid
-    pairs = [(pa, pb), (a.optimizer.state[pa]["exp_avg"], b.optimizer.state[pb]["exp_avg"]),
-             (a.optimizer.state[pa]["exp_avg_sq"], b.optimizer.state[pb]["exp_avg_sq"]),
-             (a.exposure, b.exposure), (a.background, b.background)]
-    for k, ((x, y), tol) in enumerate(zip(pairs, (None, 1e-5, 2e-5, 1e-5, 1e-5))):
-        diff = (x.detach().cpu() - y.detach()).abs().max().item()
-        assert diff <= (5e-4 if tol is None else tol * y.detach().abs().max().item()), (k, diff)
-    assert (pa.detach().cpu() - grid.cpu()).abs().max().item() > 1e-3
+    states, losses, launched = _step_on_card_and_cpu(cuda, gen, cfg, grid, [-1.5] * 3,
+                                                     [1.5] * 3)
+    assert launched == (2 if hierarchical else 1, 1)
+    _assert_steps_agree(states, losses, grid)
+
+
+@pytest.mark.parametrize("option", ["cascade", "occupancy"])
+def test_cascade_and_occupancy_steps_on_the_card(cuda, gen, option):
+    """One cascade step (hierarchical, rmsprop, a zero (8, 16, 16) detail
+    layer against a frozen 16^3 base: four forward launches, the base and
+    the detail in each pass) and one occupancy-guided step (an occupancy
+    grid with its middle cells occupied) on the card, against the same
+    steps on the CPU's plain path with the same injected random numbers, at
+    test_train_step_on_the_card's tolerances."""
+    from tpu3d_torch.config import DenseConfig
+
+    base_grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
+    base_grid[..., 0] = torch.randn((16, 16, 16), generator=gen, device=cuda) * 2.0
+    kw = dict(grid_resolution=16, batch_size=256, num_samples=16, near=0.5, far=4.0,
+              n_coarse=8, n_fine=8)
+    if option == "cascade":
+        cfg = DenseConfig(hierarchical=True, optimizer="rmsprop", **kw)
+        base = (base_grid, torch.full((3,), -1.5, device=cuda), torch.full((3,), 1.5, device=cuda))
+        grid = torch.zeros((8, 16, 16, 28), device=cuda)
+        states, losses, launched = _step_on_card_and_cpu(
+            cuda, gen, cfg, grid, [-0.6, -0.8, -0.7], [0.9, 0.8, 0.6], base=base)
+        assert launched == (4, 1)
+    else:
+        cfg = DenseConfig(occupancy_prune=True, occupancy_probes=32, **kw)
+        occ = torch.zeros((4, 4, 4), dtype=torch.bool, device=cuda)
+        occ[1:3, 1:3, 1:3] = True
+        states, losses, launched = _step_on_card_and_cpu(cuda, gen, cfg, base_grid, [-1.5] * 3,
+                                                         [1.5] * 3, occ=occ)
+        grid = base_grid
+        assert launched == (1, 1)
+    _assert_steps_agree(states, losses, grid, cfg.optimizer)
 
 
 def test_render_image_on_the_card(cuda, gen):

@@ -189,14 +189,24 @@ def test_samplers_match_tpu3d(rng):
 
 SRES, BATCH, N_RAYS, N_CAMS = 16, 64, 320, 4
 LO, HI = np.full(3, -1.5, np.float32), np.full(3, 1.5, np.float32)
+# The cascade case's detail layer: a non-cubic grid over part of the base's box.
+DETAIL_RES = (8, 16, 16)
+DETAIL_LO, DETAIL_HI = np.float32([-0.6, -0.8, -0.7]), np.float32([0.9, 0.8, 0.6])
 
 
 def _step_cfg(case, **kw):
     base = dict(grid_resolution=SRES, batch_size=BATCH, num_samples=8, near=0.5, far=4.0,
-                n_coarse=6, n_fine=6, scan_chunk=1, hierarchical=case == "hierarchical")
+                n_coarse=6, n_fine=6, scan_chunk=1,
+                hierarchical=case in ("hierarchical", "contracted", "cascade"))
     if case == "regularized":
         base.update(tv_sigma=0.3, tv_sh=0.05, sparsity_sigma=0.02, exposure=True,
                     sh_background=True)
+    elif case == "contracted":
+        base.update(contraction=True, per_ray_aabb=False, n_coarse=8, optimizer="rmsprop")
+    elif case == "occupancy":
+        base.update(occupancy_prune=True, occupancy_probes=12, optimizer="rmsprop")
+    elif case == "cascade":
+        base.update(optimizer="rmsprop")
     base.update(kw)
     return JaxDenseConfig(**base), DenseConfig(**base)
 
@@ -220,14 +230,27 @@ def _grid0(seed=1):
     return g
 
 
+def _occupancy():
+    """A (4, 4, 4) occupancy of the 16^3 grid at factor 4 with the middle
+    cells occupied and every face cell empty (a band's first and last
+    probes lie on the box's faces, where rounding decides whether they are
+    inside; an empty face cell gives the same answer either way)."""
+    occ = np.zeros((4, 4, 4), bool)
+    occ[1:3, 1:3, 1:3] = True
+    occ[1, 2, 1] = False
+    return occ
+
+
 def _jax_noise(cfg, key, grid_shape):
     """tpu3d's draws for step key ``key``, as the port's StepNoise."""
+    n = cfg.n_coarse if cfg.hierarchical else cfg.num_samples
+    n = n - n // 4 if cfg.contraction else n
     if cfg.hierarchical:
         k1, k2 = jax.random.split(key)
-        u = jax.random.uniform(k1, (BATCH, cfg.n_coarse), jnp.float32)
+        u = jax.random.uniform(k1, (BATCH, n), jnp.float32)
         u_fine = jax.random.uniform(k2, (BATCH, cfg.n_fine), jnp.float32)
     else:
-        u, u_fine = jax.random.uniform(key, (BATCH, cfg.num_samples), jnp.float32), None
+        u, u_fine = jax.random.uniform(key, (BATCH, n), jnp.float32), None
 
     def origin(fold, extra):
         ks = jax.random.split(jax.random.fold_in(key, fold), 3)
@@ -242,22 +265,37 @@ def _jax_noise(cfg, key, grid_shape):
 
 
 class _Runs:
-    """The same injected steps through the port and one of tpu3d's routes."""
+    """The same injected steps through the port and one of tpu3d's routes.
+    The contracted case's grid spans [-2, 2]^3; the cascade case trains a
+    zero detail layer against the frozen 16^3 grid as its base; the
+    occupancy case guides the depths by :func:`_occupancy`."""
 
-    def __init__(self, case, route, optimizer="adam"):
-        self.jcfg, self.cfg = _step_cfg(case, optimizer=optimizer)
+    def __init__(self, case, route, optimizer=None):
+        self.jcfg, self.cfg = _step_cfg(case, **({} if optimizer is None
+                                                 else {"optimizer": optimizer}))
         self.route = route
-        g0 = _grid0()
+        g0, lo, hi = _grid0(), LO, HI
+        self.base = self.jbase = None
+        if case == "contracted":
+            lo, hi = np.full(3, -2.0, np.float32), np.full(3, 2.0, np.float32)
+        elif case == "cascade":
+            self.base = VoxelGrid(t(g0), t(LO), t(HI))
+            self.jbase = (pack_grid(jnp.asarray(g0)), jnp.asarray(LO), jnp.asarray(HI))
+            g0, lo, hi = np.zeros(DETAIL_RES + (28,), np.float32), DETAIL_LO, DETAIL_HI
+        self.g0, self.res = g0, g0.shape[:3]
+        self.occ = t(_occupancy()) if case == "occupancy" else None
         self.rays = _rays()
         jopt = JT.make_optimizer(self.jcfg, 5)
         garr = pack_grid(jnp.asarray(g0)) if route == "packed" else jnp.asarray(g0)
         exp0 = JT.init_exposure(N_CAMS) if self.jcfg.exposure else None
         bg0 = JT.init_background() if self.jcfg.sh_background else None
-        self.jstate = JT.TrainState(JaxGrid(garr, jnp.asarray(LO), jnp.asarray(HI)),
+        self.jstate = JT.TrainState(JaxGrid(garr, jnp.asarray(lo), jnp.asarray(hi)),
                                     jopt.init(garr), jnp.asarray(0), exp0, bg0)
-        self.jstep = (JT.make_train_step_packed(self.jcfg, jopt, (SRES,) * 3, interpret=True)
+        self.jstep = (JT.make_train_step_packed(self.jcfg, jopt, self.res, interpret=True,
+                                                base_res=None if self.base is None
+                                                else (SRES,) * 3)
                       if route == "packed" else JT.make_train_step(self.jcfg, jopt))
-        self.state = TT.init_state(self.cfg, VoxelGrid(t(g0.copy()), t(LO), t(HI)), 5,
+        self.state = TT.init_state(self.cfg, VoxelGrid(t(g0.copy()), t(lo), t(hi)), 5,
                                    N_CAMS if self.cfg.exposure else None)
 
     def step(self, i):
@@ -265,15 +303,19 @@ class _Runs:
         sel = np.random.RandomState(100 + i).choice(N_RAYS, BATCH, replace=False)
         key = jax.random.fold_in(jax.random.PRNGKey(3), i)
         jc = jnp.asarray(cid[sel]) if self.jcfg.exposure else None
+        kw = {} if self.jbase is None else {"base": self.jbase}
         self.jstate, jl = self.jstep(self.jstate, key, jnp.asarray(o[sel]), jnp.asarray(d[sel]),
-                                     jnp.asarray(rgb[sel]), cid=jc)
+                                     jnp.asarray(rgb[sel]),
+                                     occ=None if self.occ is None else jnp.asarray(self.occ),
+                                     cid=jc, **kw)
         loss = TT.train_step(self.state, self.cfg, t(o[sel]), t(d[sel]), t(rgb[sel]),
                              t(cid[sel].astype(np.int64)) if self.cfg.exposure else None,
-                             noise=_jax_noise(self.jcfg, key, (SRES,) * 3))
+                             noise=_jax_noise(self.jcfg, key, self.res), occ=self.occ,
+                             base=self.base)
         return float(loss), float(jl)
 
     def _unpacked(self, a):
-        return np.asarray(unpack_grid(a, (SRES,) * 3 + (28,))) if self.route == "packed" \
+        return np.asarray(unpack_grid(a, self.res + (28,))) if self.route == "packed" \
             else np.asarray(a)
 
     def pairs(self):
@@ -294,8 +336,11 @@ class _Runs:
         return out
 
 
-@pytest.mark.parametrize("route", ["xla", "packed"])
-@pytest.mark.parametrize("case", ["plain", "hierarchical", "regularized"])
+@pytest.mark.parametrize("case, route", [
+    ("plain", "xla"), ("plain", "packed"), ("hierarchical", "xla"), ("hierarchical", "packed"),
+    ("regularized", "xla"), ("regularized", "packed"), ("contracted", "xla"),
+    ("contracted", "packed"), ("occupancy", "xla"), ("occupancy", "packed"),
+    ("cascade", "packed")])
 def test_train_step_matches_tpu3d(case, route):
     """One step, then four more chained, with tpu3d's draws injected: loss,
     grid, Adam moments, exposure and background within 1e-5 after one step,
@@ -303,13 +348,23 @@ def test_train_step_matches_tpu3d(case, route):
     (rtol 2e-4, atol 5e-4: Adam's sqrt(v) amplifies rounding on near-zero
     gradients, tests/test_trilinear_grad.py:106-110). The regularized case
     turns on TV, sparsity, exposure and the SH background; its 32^3 crop
-    covers the 16^3 grid, where tpu3d's two routes crop alike."""
+    covers the 16^3 grid, where tpu3d's two routes crop alike. The
+    contracted case is hierarchical under contraction, unclipped; the
+    occupancy case samples its depths by an occupancy grid; the cascade
+    case (hierarchical) trains a detail layer against a frozen base, on the
+    Pallas route that tpu3d forces for a cascade. These three step with
+    rmsprop (the cascade's own optimizer): their far samples leave voxels
+    whose gradient is near Adam's 1e-8 epsilon, where Adam's first step
+    lr g / (|g| + 1e-8) turns a rounding-sized change of g into a share of
+    lr (with Adam, 2 of 114,688 voxels 3.6e-5 apart after one contracted
+    step and 1 voxel 9.2e-4 apart after five occupancy steps, the moments
+    within tolerance)."""
     runs = _Runs(case, route)
     loss, jloss = runs.step(0)
     np.testing.assert_allclose(loss, jloss, rtol=1e-5, atol=1e-6)
     for name, got, ref in runs.pairs():
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5, err_msg=name)
-    assert np.abs(runs.pairs()[0][1] - _grid0()).max() > 1e-3     # the grid moved
+    assert np.abs(runs.pairs()[0][1] - runs.g0).max() > 1e-3     # the grid moved
     for i in range(1, 5):
         loss, jloss = runs.step(i)
         np.testing.assert_allclose(loss, jloss, rtol=2e-4, atol=5e-4)
@@ -441,13 +496,17 @@ def test_port_checkpoint_loads_in_tpu3d_and_resumes(tmp_path):
     assert int(store.load("dense_ckpt")["epoch"]) == 1
 
 
-def test_unported_training_options_refuse():
-    ds = _ckpt_dataset()[1]
-    for kw in (dict(occupancy_prune=True), dict(contraction=True), dict(coarse_epochs=1),
-               dict(camera_gate=True)):
-        with pytest.raises(NotImplementedError, match="7c"):
-            TT.train_plenoxel(ds, DenseConfig(grid_resolution=8, **kw), verbose=False,
-                              device="cpu")
+def test_unported_training_options_refuse(tmp_path):
+    """What stays unported refuses by name, before it reads anything: the
+    SDF model names ROADMAP item 7d and a device mesh item 10."""
+    from tpu3d_torch.cli import main
+
+    base = ["densify", "--images", str(tmp_path / "none"), "--artifacts", str(tmp_path / "a"),
+            "--device", "cpu"]
+    for extra, item in ((["--model", "sdf"], "item 7d"), (["--mesh", "auto"], "item 10"),
+                        (["--mesh", "2x4", "--contraction"], "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
+            main(base + extra)
 
 
 # --------------------------------------------------------------------------

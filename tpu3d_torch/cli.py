@@ -6,9 +6,14 @@ densify --eval-only`` (:847-920) and ``cli render`` (:1011-1115).
         [--limit N] [--ply out.ply] [tpu3d's sparse-stage flags]
     python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--epochs N]
         [--ray-stride S] [--norm coremax|core|legacy] [--hierarchical]
+        [--contraction [--norm-core-q Q --norm-core-radius R --band-core-radius B]]
+        [--coarse-epochs N] [--occupancy] [--camera-gate --camera-gate-epoch E]
+        [--aniso-grid] [--detail-epochs N [--detail-res R]] [--detail-only]
         [--tv-sigma W --tv-sh W] [--sparsity-sigma W] [--exposure]
         [--sh-background] [--dense-optimizer adam|rmsprop]
         [--no-checkpoint [--final-grid]] [--resume]
+    python -m tpu3d_torch.cli densify --rays-pkl F [--test-rays-pkl F] [--near N --far F]
+        --images DIR --artifacts DIR
     python -m tpu3d_torch.cli densify --eval-only --images DIR --artifacts DIR
     python -m tpu3d_torch.cli render --images DIR --artifacts DIR [--orbit N]
 
@@ -16,17 +21,20 @@ They read and write tpu3d's artifacts unchanged: ``full`` writes
 ``features_meta``, ``reconstruction`` and ``reconstruction_meta`` (then the
 PLY) and prints tpu3d's JSON summary line; training reads
 ``reconstruction`` and ``reconstruction_meta`` and writes ``dense_ckpt``,
-``dense_grid``, ``mesh_grid``, ``dense_meta`` and ``dense_result``; eval and
+``dense_grid`` (and a cascade's ``dense_grid_detail``), ``mesh_grid``,
+``dense_meta`` and ``dense_result``; eval and
 render take the normalization, band, sample count, per-ray box clipping and
-contraction the grid was trained with from ``dense_meta``. ``densify``,
-``full``, ``densify``, ``densify_eval_only`` and ``render_artifacts`` are
-the functions behind the commands; they run on the card unless given
-``device="cpu"``. Options that are not ported yet raise NotImplementedError
-naming their ROADMAP item.
+contraction the grid was trained with from ``dense_meta``. ``full``,
+``densify``, ``densify_from_rays``, ``densify_eval_only`` and
+``render_artifacts`` are the functions behind the commands; they run on
+the card unless given ``device="cpu"``. ``densify --model sdf`` and
+``--mesh`` are not ported yet and raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -41,13 +49,16 @@ from tpu3d_torch.config import (BAConfig, CameraConfig, DenseConfig, FrontendCon
                                 MatchingConfig, PipelineConfig, RansacConfig, SfMConfig)
 from tpu3d_torch.dense.eval import (dataset_from_views, evaluate_views, interpolate_poses,
                                     render_view, split_views_by_name)
-from tpu3d_torch.dense.grid import grid_from_mesh_grid, grid_from_tpu3d
+from tpu3d_torch.dense.contract import contract
+from tpu3d_torch.dense.grid import VoxelGrid, create_grid, grid_from_mesh_grid, grid_from_tpu3d
+from tpu3d_torch.dense.render import render_image
 from tpu3d_torch.dense.train import (LAST_TRAIN_AUX, SceneNormalization, auto_near_far,
-                                     normalize_scene, normalize_scene_contracted,
-                                     normalize_scene_coremax, normalize_scene_legacy,
+                                     core_points, normalize_scene, normalize_scene_contracted,
+                                     normalize_scene_coremax, normalize_scene_legacy, psnr,
                                      train_plenoxel)
 from tpu3d_torch.io.artifacts import ArtifactStore
 from tpu3d_torch.io.ply import write_ply
+from tpu3d_torch.io.raydata import load_ray_dataset
 
 Artifacts = Union[str, ArtifactStore]
 
@@ -193,25 +204,80 @@ def _photographs(rgb_u8: np.ndarray, names: Sequence[str], wanted: Sequence[str]
     return rgb_u8[[pos[n] for n in wanted]]
 
 
+def _anisotropic_grid(points: np.ndarray, nrm: SceneNormalization, coremax_q: float, R: int,
+                      dev) -> VoxelGrid:
+    """tpu3d's --aniso-grid (tpu3d/cli.py:542-571): the box of the kept
+    cloud (0.5-99.5 percentiles plus 5%) at the R^3 voxel budget, each axis'
+    resolution proportional to its extent, a multiple of 8 in [32, 2R]."""
+    kept = core_points(points, q=coremax_q, k=1.0)
+    pn = nrm.apply(kept if len(kept) else points)
+    lo = np.percentile(pn, 0.5, axis=0).astype(np.float32)
+    hi = np.percentile(pn, 99.5, axis=0).astype(np.float32)
+    pad = 0.05 * (hi - lo) + 1e-3
+    lo, hi = lo - pad, hi + pad
+    ext = hi - lo
+    s = float((R**3 / np.prod(ext)) ** (1.0 / 3.0))
+    mults = [8, 8, 8]
+    res = tuple(int(np.clip(round(e * s / m) * m, max(32, m), 2 * R)) for e, m in zip(ext, mults))
+    return create_grid(res, lo, hi, device=dev)
+
+
+def _detail_box(points: np.ndarray, nrm: SceneNormalization, coremax_q: float,
+                contraction: bool, base: VoxelGrid, Rd: int):
+    """The cascade's detail grid (tpu3d/cli.py:638-658): the kept cloud's
+    box in sample space (contracted under contraction), inside the base's,
+    at the Rd^3 voxel budget. Returns (lo, hi, resolution)."""
+    kept = core_points(points, q=coremax_q, k=1.0)
+    pn = nrm.apply(kept if len(kept) else points).astype(np.float32)
+    if contraction:
+        pn = contract(torch.from_numpy(pn)).numpy()
+    lo = np.percentile(pn, 0.5, axis=0).astype(np.float32)
+    hi = np.percentile(pn, 99.5, axis=0).astype(np.float32)
+    pad = 0.05 * (hi - lo) + 1e-3
+    lo, hi = lo - pad, hi + pad
+    lo = np.maximum(lo, base.min_bound.cpu().numpy())
+    hi = np.minimum(hi, base.max_bound.cpu().numpy())
+    ext = np.maximum(hi - lo, 1e-3)
+    sfact = float((Rd**3 / np.prod(ext)) ** (1.0 / 3.0))
+    return lo, hi, tuple(int(np.clip(round(e * sfact / 8) * 8, 32, 2 * Rd)) for e in ext)
+
+
 def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], focal: float, *,
             epochs: int = 1, ray_stride: int = 2, norm: str = "coremax",
-            norm_core_q: float = 92.0, norm_margin: float = 1.15, coremax_q: float = 80.0,
-            grid_resolution: int = 256, num_samples: int = 192, scene_scale: float = 0.0,
-            optimizer: str = "adam", hierarchical: bool = False, tv_sigma: float = 0.0,
-            tv_sh: float = 0.0, sparsity_sigma: float = 0.0, exposure: bool = False,
-            sh_background: bool = False, holdout_every: int = 8, max_eval_views: int = 8,
-            include_low_confidence: bool = False, no_checkpoint: bool = False,
-            final_grid: bool = False, resume: bool = False, downscale: int = 1,
-            log_every: int = 170, verbose: bool = False,
+            norm_core_q: float = 92.0, norm_margin: float = 1.15,
+            norm_core_radius: float = 0.9, band_core_radius: float = 0.0,
+            coremax_q: float = 80.0, contraction: bool = False, grid_resolution: int = 256,
+            aniso_grid: bool = False, num_samples: int = 192, scene_scale: float = 0.0,
+            optimizer: str = "adam", hierarchical: bool = False, occupancy: bool = False,
+            coarse_epochs: int = 0, tv_sigma: float = 0.0, tv_sh: float = 0.0,
+            sparsity_sigma: float = 0.0, exposure: bool = False, sh_background: bool = False,
+            camera_gate: bool = False, camera_gate_epoch: int = 2, detail_epochs: int = 0,
+            detail_res: int = 0, detail_only: bool = False, holdout_every: int = 8,
+            max_eval_views: int = 8, include_low_confidence: bool = False,
+            no_checkpoint: bool = False, final_grid: bool = False, resume: bool = False,
+            downscale: int = 1, log_every: int = 170, verbose: bool = False,
             renders: Optional[list] = None, device="cuda") -> dict:
     """Train the plenoxel grid of the registered views and score it, as
     tpu3d's ``cmd_densify`` with the same flags: normalize the scene
-    (``norm``), take the sampling band from the sparse cloud, hold out the
-    name-keyed test views, train (``train_plenoxel``, checkpointing each
-    epoch into the store unless ``no_checkpoint``), save ``dense_grid``
-    (unless ``no_checkpoint`` without ``final_grid``), ``mesh_grid`` and
-    ``dense_meta``, evaluate the held-out views and write and return
-    ``dense_result``.
+    (``norm``, or the contraction's normalization), take the sampling band
+    from the sparse cloud, hold out the name-keyed test views, train
+    (``train_plenoxel``, checkpointing each epoch into the store unless
+    ``no_checkpoint``) with tpu3d's options (``occupancy``, ``coarse_epochs``,
+    ``camera_gate``, ``aniso_grid``), then with ``detail_epochs`` a
+    cascade detail grid against the frozen result; save ``dense_grid``
+    (unless ``no_checkpoint`` without ``final_grid``), ``dense_grid_detail``,
+    ``mesh_grid`` and ``dense_meta``, evaluate the held-out views (the pair
+    for a cascade) and write and return ``dense_result``.
+
+    Under ``contraction`` per-ray box clipping is off, ``occupancy`` is
+    dropped (the disparity tail takes its place) and ``aniso_grid`` is
+    ignored, as in tpu3d. ``detail_only`` loads the saved ``dense_grid`` as
+    the base and trains only the detail layer (4 epochs unless
+    ``detail_epochs`` says otherwise), with the normalization, band, box
+    clipping and contraction that ``dense_meta`` recorded for it (tpu3d
+    recomputes them from its flags); it saves no dense_grid and scores
+    nothing (``densify_eval_only`` does). A cascade keeps the base's
+    learned background and the cameras its gate dropped.
 
     rgb_u8: (n, H, W, 3) photographs at the grid's image scale, the image
     named names[i] in rgb_u8[i]; it must hold every registered view. focal
@@ -223,51 +289,118 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     cams, reg_names, meta = registered_views(store, include_low_confidence)
     points = _load(store, "reconstruction", "run `reconstruct` first")["points"]
     rgb = _photographs(rgb_u8, names, reg_names)
-    if norm == "coremax":
-        nrm = normalize_scene_coremax(points, q=coremax_q)
-    elif norm == "core":
-        nrm = normalize_scene(points, core_q=norm_core_q, margin=norm_margin)
-    elif norm == "legacy":
-        nrm = normalize_scene_legacy(points)
+    per_ray_aabb = DenseConfig.per_ray_aabb
+    if detail_only:
+        dm = store.load_json("dense_meta")
+        if dm is None:
+            raise FileNotFoundError(f"no dense_meta in {store.root}: --detail-only needs the "
+                                    "base densify's artifacts")
+        nrm = SceneNormalization(np.asarray(dm["norm_center"], np.float32),
+                                 float(dm["norm_scale"]))
+        near, far = float(dm["near"]), float(dm["far"])
+        contraction = bool(dm.get("contraction", False))
+        per_ray_aabb = bool(dm["per_ray_aabb"])
+    elif contraction:
+        nrm = normalize_scene_contracted(points, core_q=norm_core_q, core_radius=norm_core_radius)
+        band_pts = points
+        if band_core_radius > 0:
+            keep = np.linalg.norm(nrm.apply(band_pts), axis=1) <= band_core_radius
+            if keep.sum() >= 100:
+                band_pts = band_pts[keep]
+        near, far = auto_near_far(cams, band_pts, nrm)
+        per_ray_aabb = False
     else:
-        raise ValueError(f"unknown normalization {norm!r}: coremax, core or legacy")
-    near, far = auto_near_far(cams, points, nrm)
+        if norm == "coremax":
+            nrm = normalize_scene_coremax(points, q=coremax_q)
+        elif norm == "core":
+            nrm = normalize_scene(points, core_q=norm_core_q, margin=norm_margin)
+        elif norm == "legacy":
+            nrm = normalize_scene_legacy(points)
+        else:
+            raise ValueError(f"unknown normalization {norm!r}: coremax, core or legacy")
+        near, far = auto_near_far(cams, points, nrm)
+    if contraction and occupancy:
+        print("--occupancy is ignored under --contraction (the disparity-tail sampler "
+              "overrides occupancy-guided sampling)", file=sys.stderr)
+        occupancy = False
     if scene_scale <= 0:
         scene_scale = 1.0 if norm in ("coremax", "core") else 1.5
     cfg = DenseConfig(epochs=epochs, grid_resolution=grid_resolution, num_samples=num_samples,
                       hierarchical=hierarchical, scene_scale=scene_scale, optimizer=optimizer,
-                      near=near, far=far, tv_sigma=tv_sigma, tv_sh=tv_sh, exposure=exposure,
-                      sh_background=sh_background, sparsity_sigma=sparsity_sigma)
+                      near=near, far=far, per_ray_aabb=per_ray_aabb, contraction=contraction,
+                      occupancy_prune=occupancy, coarse_epochs=coarse_epochs,
+                      tv_sigma=tv_sigma, tv_sh=tv_sh, exposure=exposure,
+                      sh_background=sh_background, sparsity_sigma=sparsity_sigma,
+                      camera_gate=camera_gate, camera_gate_epoch=camera_gate_epoch)
+    grid0 = None
+    if aniso_grid and not contraction and not detail_only:
+        grid0 = _anisotropic_grid(points, nrm, coremax_q, grid_resolution, dev)
+        if verbose:
+            print(f"anisotropic grid: {grid0.resolution} (budget {grid_resolution}^3)",
+                  flush=True)
     train_idx, test_idx = split_views_by_name(reg_names, holdout_every)
     dataset = dataset_from_views(cams, rgb, focal, train_idx, nrm, stride=ray_stride)
     if verbose:
         print(f"scene-derived sampling band: near={near:.3f} far={far:.3f}; "
               f"{len(dataset.origins)} rays from {len(train_idx)} train cameras "
               f"({len(test_idx)} held out)", flush=True)
-    grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
-                                  checkpoint_store=None if no_checkpoint else store,
-                                  resume=resume, device=dev)
-    bg_sh = LAST_TRAIN_AUX.get("background")
+    if detail_only:
+        grid, bg_sh = grid_from_tpu3d(_load(store, "dense_grid", "run the base densify with "
+                                            "--final-grid first"), dev)
+        losses, dropped = [], []
+        detail_epochs = detail_epochs if detail_epochs > 0 else 4
+    else:
+        grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
+                                      checkpoint_store=None if no_checkpoint else store,
+                                      resume=resume, grid=grid0, device=dev)
+        del grid0
+        bg = LAST_TRAIN_AUX.get("background")
+        bg_sh = None if bg is None else torch.from_numpy(bg).to(dev)
+        dropped = list(LAST_TRAIN_AUX.get("dropped_cameras", []))
+    detail = None
+    if detail_epochs > 0:
+        lo, hi, dres = _detail_box(points, nrm, coremax_q, contraction, grid,
+                                   detail_res or grid_resolution)
+        if verbose:
+            print(f"[cascade] detail grid {dres} over box {np.round(lo, 2).tolist()}.."
+                  f"{np.round(hi, 2).tolist()}", flush=True)
+        det_cfg = dataclasses.replace(cfg, epochs=detail_epochs, coarse_epochs=0,
+                                      camera_gate=False, exposure=False, sh_background=False,
+                                      optimizer="rmsprop")
+        detail, det_losses = train_plenoxel(dataset, det_cfg, verbose=verbose,
+                                            log_every=log_every, base_grid=grid,
+                                            grid=create_grid(dres, lo, hi, init=0.0, device=dev),
+                                            device=dev)
+        losses = losses + det_losses
+        if not no_checkpoint or final_grid:
+            store.save("dense_grid_detail", grid=detail.grid.cpu().numpy(), min_bound=lo,
+                       max_bound=hi)
     bounds = dict(min_bound=grid.min_bound.cpu().numpy(), max_bound=grid.max_bound.cpu().numpy())
-    if not no_checkpoint or final_grid:
+    if (not no_checkpoint or final_grid) and not detail_only:
         store.save("dense_grid", grid=grid.grid.cpu().numpy(), **bounds,
-                   **({} if bg_sh is None else {"bg_sh": bg_sh}))
+                   **({} if bg_sh is None else {"bg_sh": bg_sh.cpu().numpy()}))
     # density and the SH DC of each colour, f16: what `cli mesh` reads
     store.save("mesh_grid", grid=grid.grid[..., [0, 1, 10, 19]].cpu().numpy().astype(np.float16),
-               **bounds, contraction=np.asarray(False))
+               **bounds, contraction=np.asarray(contraction))
     store.save_json("dense_meta", {
         "model": "plenoxel", "near": float(near), "far": float(far),
-        "num_samples": int(num_samples), "per_ray_aabb": bool(cfg.per_ray_aabb),
-        "downscale": int(downscale), "contraction": False,
+        "num_samples": int(num_samples), "per_ray_aabb": bool(per_ray_aabb),
+        "downscale": int(downscale), "contraction": bool(contraction),
         "norm_center": np.asarray(nrm.center, np.float64).tolist(),
-        "norm_scale": float(nrm.scale), "cascade_detail": None})
+        "norm_scale": float(nrm.scale),
+        "cascade_detail": None if detail is None else {
+            "res": [int(r) for r in detail.resolution], "min_bound": lo.tolist(),
+            "max_bound": hi.tolist()}})
     out = {"final_loss": losses[-1] if losses else None,
            "psnr_train_proxy": float(-10 * np.log10(losses[-1])) if losses else None,
-           "dropped_cameras": []}
-    if len(test_idx):
-        ev = evaluate_views(grid, cams[test_idx], rgb[test_idx], focal, cfg, nrm, stride=2,
-                            max_views=max_eval_views,
-                            bg_sh=None if bg_sh is None else torch.from_numpy(bg_sh).to(dev))
+           "dropped_cameras": [reg_names[int(train_idx[c])] for c in dropped]}
+    if len(test_idx) and not detail_only:
+        if detail is not None:
+            ev = evaluate_views(detail, cams[test_idx], rgb[test_idx], focal, cfg, nrm,
+                                stride=2, max_views=max_eval_views, bg_sh=bg_sh, base_grid=grid)
+        else:
+            ev = evaluate_views(grid, cams[test_idx], rgb[test_idx], focal, cfg, nrm, stride=2,
+                                max_views=max_eval_views, bg_sh=bg_sh)
         out.update(test_psnr=ev["mean_psnr"],
                    test_psnr_per_view=[round(float(p), 2) for p in ev["per_view"]],
                    test_psnr_calibrated=ev["mean_psnr_calibrated"],
@@ -280,10 +413,52 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
         out["test_view_names"] = [reg_names[k] for k in test_idx]
         if renders is not None:
             renders.extend(ev["renders"])
-    out["recipe"] = {"epochs": epochs, "coarse_epochs": 0, "grid_resolution": grid_resolution,
-                     "contraction": False, "coremax_q": coremax_q, "detail_epochs": 0,
-                     "model": "plenoxel"}
+    out["recipe"] = {"epochs": epochs, "coarse_epochs": coarse_epochs,
+                     "grid_resolution": grid_resolution, "contraction": bool(contraction),
+                     "coremax_q": coremax_q, "detail_epochs": detail_epochs, "model": "plenoxel"}
     store.save_json("dense_result", out)
+    return out
+
+
+def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str = "",
+                      near: float = 0.0, far: float = 0.0, epochs: int = 1,
+                      grid_resolution: int = 256, num_samples: int = 192,
+                      hierarchical: bool = False, scene_scale: float = 0.0,
+                      optimizer: str = "adam", occupancy: bool = False, tv_sigma: float = 0.0,
+                      tv_sh: float = 0.0, no_checkpoint: bool = False, resume: bool = False,
+                      log_every: int = 170, verbose: bool = False, device="cuda") -> dict:
+    """tpu3d's ``densify --rays-pkl`` (_densify_from_rays, tpu3d/cli.py:923-970):
+    train on an (N, 9) ray file (io/raydata.py) with the band [near, far]
+    (the reference's 2 and 6 where 0) and the grid half-extent
+    ``scene_scale`` (1.5 where 0); save ``dense_grid`` unless
+    ``no_checkpoint``; with ``test_rays_pkl``, the PSNR of its rays
+    rendered by the trained grid. Returns {final_loss, psnr_train_proxy[,
+    test_psnr]}; writes no dense_result."""
+    dev = resolve_device(device)
+    store = _store(artifacts)
+    dataset = load_ray_dataset(rays_pkl)
+    if verbose:
+        print(f"{len(dataset.origins)} rays from {rays_pkl}", flush=True)
+    cfg = DenseConfig(epochs=epochs, grid_resolution=grid_resolution, num_samples=num_samples,
+                      hierarchical=hierarchical, optimizer=optimizer,
+                      scene_scale=scene_scale if scene_scale > 0 else 1.5,
+                      near=near if near > 0 else DenseConfig.near,
+                      far=far if far > 0 else DenseConfig.far, occupancy_prune=occupancy,
+                      tv_sigma=tv_sigma, tv_sh=tv_sh)
+    grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
+                                  checkpoint_store=None if no_checkpoint else store,
+                                  resume=resume, device=dev)
+    if not no_checkpoint:
+        store.save("dense_grid", grid=grid.grid.cpu().numpy(),
+                   min_bound=grid.min_bound.cpu().numpy(), max_bound=grid.max_bound.cpu().numpy())
+    out = {"final_loss": losses[-1] if losses else None,
+           "psnr_train_proxy": float(-10 * np.log10(losses[-1])) if losses else None}
+    if test_rays_pkl:
+        test = load_ray_dataset(test_rays_pkl)
+        pred = render_image(grid, torch.from_numpy(test.origins).to(dev),
+                            torch.from_numpy(test.dirs).to(dev), cfg.near, cfg.far,
+                            cfg.num_samples, clip_aabb=cfg.per_ray_aabb)
+        out["test_psnr"] = psnr(pred.cpu().numpy(), test.rgb)
     return out
 
 
@@ -432,48 +607,49 @@ def _cmd_render(args) -> None:
                       "seconds": round(time.time() - t0, 1)}))
 
 
-# Training flags the port does not have yet, with their ROADMAP items.
-_UNPORTED_FLAGS = (
-    ("occupancy", "--occupancy", "Queue 1 item 7c"),
-    ("coarse_epochs", "--coarse-epochs", "Queue 1 item 7c"),
-    ("camera_gate", "--camera-gate", "Queue 1 item 7c"),
-    ("detail_epochs", "--detail-epochs", "Queue 1 item 7c"),
-    ("detail_only", "--detail-only", "Queue 1 item 7c"),
-    ("aniso_grid", "--aniso-grid", "Queue 1 item 7c"),
-    ("contraction", "--contraction", "Queue 1 item 7c"),
-    ("rays_pkl", "--rays-pkl", "Queue 1 item 7c"),
-    ("model", "--model sdf", "Queue 1 item 7d"),
-    ("mesh", "--mesh", "Queue 1 item 10"),
-)
-
-
 def _cmd_densify(args) -> None:
     from tpu3d_torch.io.images import load_images
 
+    for flag, bad, item in (("--model sdf", args.model == "sdf", "Queue 1 item 7d"),
+                            (f"--mesh {args.mesh}", bool(args.mesh), "Queue 1 item 10")):
+        if bad:
+            raise NotImplementedError(f"tpu3d_torch: densify {flag} is not ported yet "
+                                      f"(ROADMAP {item})")
     store = ArtifactStore(args.artifacts)
+    if args.rays_pkl:
+        out = densify_from_rays(store, args.rays_pkl, test_rays_pkl=args.test_rays_pkl,
+                                near=args.near, far=args.far, epochs=args.epochs,
+                                grid_resolution=args.grid_resolution,
+                                num_samples=args.num_samples, hierarchical=args.hierarchical,
+                                scene_scale=args.scene_scale, optimizer=args.dense_optimizer,
+                                occupancy=args.occupancy, tv_sigma=args.tv_sigma,
+                                tv_sh=args.tv_sh, no_checkpoint=args.no_checkpoint,
+                                resume=args.resume, verbose=not args.quiet, device=args.device)
+        print(json.dumps(out))
+        return
     ds = _downscale(store, args.dense_downscale)
     _, names, _ = registered_views(store, args.include_low_confidence)
+    rgb = load_images(args.images, names, ds)[1]
     if args.eval_only:
-        rgb = load_images(args.images, names, ds)[1]
         out = densify_eval_only(store, rgb, names, args.focal / ds, args.holdout_every,
                                 args.max_eval_views, args.include_low_confidence, args.device)
         print(json.dumps(out))
         return
-    for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr) not in (False, 0, "", "plenoxel"):
-            raise NotImplementedError(f"tpu3d_torch: densify {flag} is not ported yet "
-                                      f"(ROADMAP {item})")
-    rgb = load_images(args.images, names, ds)[1]
     renders: list = []
     out = densify(store, rgb, names, args.focal / ds, epochs=args.epochs,
                   ray_stride=args.ray_stride, norm=args.norm, norm_core_q=args.norm_core_q,
-                  norm_margin=args.norm_margin, coremax_q=args.coremax_q,
-                  grid_resolution=args.grid_resolution, num_samples=args.num_samples,
+                  norm_margin=args.norm_margin, norm_core_radius=args.norm_core_radius,
+                  band_core_radius=args.band_core_radius, coremax_q=args.coremax_q,
+                  contraction=args.contraction, grid_resolution=args.grid_resolution,
+                  aniso_grid=args.aniso_grid, num_samples=args.num_samples,
                   scene_scale=args.scene_scale, optimizer=args.dense_optimizer,
-                  hierarchical=args.hierarchical, tv_sigma=args.tv_sigma, tv_sh=args.tv_sh,
+                  hierarchical=args.hierarchical, occupancy=args.occupancy,
+                  coarse_epochs=args.coarse_epochs, tv_sigma=args.tv_sigma, tv_sh=args.tv_sh,
                   sparsity_sigma=args.sparsity_sigma, exposure=args.exposure,
-                  sh_background=args.sh_background, holdout_every=args.holdout_every,
-                  max_eval_views=args.max_eval_views,
+                  sh_background=args.sh_background, camera_gate=args.camera_gate,
+                  camera_gate_epoch=args.camera_gate_epoch, detail_epochs=args.detail_epochs,
+                  detail_res=args.detail_res, detail_only=args.detail_only,
+                  holdout_every=args.holdout_every, max_eval_views=args.max_eval_views,
                   include_low_confidence=args.include_low_confidence,
                   no_checkpoint=args.no_checkpoint, final_grid=args.final_grid,
                   resume=args.resume, downscale=ds, verbose=not args.quiet, renders=renders,
@@ -546,15 +722,33 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--resume", action="store_true",
                    help="continue training after the epoch saved in dense_ckpt")
     p.add_argument("--quiet", action="store_true")
-    # tpu3d's training options that the port refuses (NotImplementedError)
-    p.add_argument("--occupancy", action="store_true")
-    p.add_argument("--coarse-epochs", type=int, default=0)
-    p.add_argument("--camera-gate", action="store_true")
-    p.add_argument("--detail-epochs", type=int, default=0)
-    p.add_argument("--detail-only", action="store_true")
-    p.add_argument("--aniso-grid", action="store_true")
-    p.add_argument("--contraction", action="store_true")
-    p.add_argument("--rays-pkl", default="")
+    p.add_argument("--contraction", action="store_true",
+                   help="radial scene contraction: the grid spans [-2, 2]^3, the core linear")
+    p.add_argument("--norm-core-radius", type=float, default=0.9,
+                   help="contraction: normalized radius the core percentile lands at")
+    p.add_argument("--band-core-radius", type=float, default=0.0,
+                   help="contraction: the sampling band from points within this normalized "
+                        "radius only (0 = off)")
+    p.add_argument("--occupancy", action="store_true", help="occupancy-guided sampling")
+    p.add_argument("--coarse-epochs", type=int, default=0,
+                   help="coarse-to-fine: this many epochs on a 2x-downscaled grid first")
+    p.add_argument("--camera-gate", action="store_true",
+                   help="drop training cameras whose probe loss is a robust outlier")
+    p.add_argument("--camera-gate-epoch", type=int, default=2)
+    p.add_argument("--aniso-grid", action="store_true",
+                   help="fit the grid box to the kept cloud at the same voxel budget")
+    p.add_argument("--detail-epochs", type=int, default=0,
+                   help="cascade: train a detail grid against the frozen base this many epochs")
+    p.add_argument("--detail-res", type=int, default=0,
+                   help="cascade: the detail grid's voxel budget (0 = --grid-resolution)")
+    p.add_argument("--detail-only", action="store_true",
+                   help="cascade: load the saved dense_grid as the base, train only the detail")
+    p.add_argument("--rays-pkl", default="",
+                   help="train from an (N, 9) [origin, dir, rgb] ray file instead")
+    p.add_argument("--test-rays-pkl", default="", help="rays-pkl: held-out ray file")
+    p.add_argument("--near", type=float, default=0.0, help="rays-pkl: band near (0 = 2)")
+    p.add_argument("--far", type=float, default=0.0, help="rays-pkl: band far (0 = 6)")
+    # tpu3d's options that the port refuses (NotImplementedError)
     p.add_argument("--model", choices=["plenoxel", "sdf"], default="plenoxel")
     p.add_argument("--mesh", default="")
     p.add_argument("--holdout-every", type=int, default=8)
@@ -567,6 +761,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--render-stride", type=int, default=1)
     p.add_argument("--out", default="", help="render: PNG directory (default ARTIFACTS/renders)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--cpu", dest="device", action="store_const", const="cpu",
+                   help="the same as --device cpu")
     args = p.parse_args(argv)
     {"full": _cmd_full, "densify": _cmd_densify, "render": _cmd_render}[args.command](args)
 

@@ -16,7 +16,7 @@ import torch
 from tpu3d_torch.kernels import trilinear as _tri
 from tpu3d_torch.kernels.trilinear import trilinear_sample_plain as trilinear_sample
 
-__all__ = ["VoxelGrid", "create_grid", "trilinear_sample", "eval_sh", "query",
+__all__ = ["VoxelGrid", "create_grid", "resample_grid", "trilinear_sample", "eval_sh", "query",
            "grid_from_tpu3d", "grid_from_mesh_grid", "grid_tensor", "unpack_grid"]
 
 CHANNELS = 28          # 1 density + 3 colours x 9 SH coefficients
@@ -43,6 +43,31 @@ def create_grid(resolution, min_bound, max_bound, channels: int = CHANNELS,
     g = torch.full((*resolution, channels), init, dtype=torch.float32, device=device)
     return VoxelGrid(g, torch.as_tensor(min_bound, dtype=torch.float32, device=device),
                      torch.as_tensor(max_bound, dtype=torch.float32, device=device))
+
+
+def resample_grid(g: torch.Tensor, new_res) -> torch.Tensor:
+    """Align-corners trilinear resample of an (X, Y, Z, C) grid to
+    ``new_res``, one axis at a time (tpu3d/dense/grid.py:47-72): node i of
+    the new axis lands at i * (old - 1) / (new - 1) of the old one, so an
+    upsampled grid keeps every value the sampler read at the old nodes."""
+    for axis, n_new in enumerate(int(n) for n in new_res):
+        n_old = g.shape[axis]
+        if n_new == n_old:
+            continue
+        # jnp.linspace(0, n_old - 1, n_new) as XLA evaluates it: i times
+        # (n_old - 1) times the f32 reciprocal of n_new - 1, the last exact
+        step = np.float32(n_old - 1) * (np.float32(1.0) / np.float32(n_new - 1))
+        pos = torch.arange(n_new, dtype=torch.float32, device=g.device) * float(step)
+        pos[-1] = n_old - 1.0
+        i0 = torch.floor(pos).long().clamp(0, n_old - 2)
+        shape = [1] * g.dim()
+        shape[axis] = n_new
+        f = (pos - i0).reshape(shape)
+        # a0 (1 - f) + a1 f, each product rounded as tpu3d's, in place
+        a1 = torch.index_select(g, axis, i0 + 1).mul_(f)
+        g = torch.index_select(g, axis, i0).mul_(1.0 - f).add_(a1)
+        del a1
+    return g
 
 
 # Real SH degree-2 constants (google/spherical-harmonics; ref plenoxel.py:13-16).

@@ -3,7 +3,9 @@ registered cameras, the scene normalizations and the scene-derived sampling
 band (numpy, on the host), and plenoxel training of the voxel grid on the
 device: the lr schedule, the grid optimizers, the per-image exposure and
 SH-background latents, the stochastic TV and sparsity priors, one training
-step and ``train_plenoxel``, with tpu3d's ``dense_ckpt`` checkpoints.
+step and ``train_plenoxel``, with tpu3d's ``dense_ckpt`` checkpoints, its
+coarse-to-fine phase, its occupancy refreshes, its camera gate and the
+frozen base of its two-level cascade, on tpu3d's loop cadence.
 
 tpu3d has two step routes, ``make_train_step`` (XLA autodiff through the
 gather) and ``make_train_step_packed`` (the Pallas kernel pair); here
@@ -24,8 +26,9 @@ import torch
 from tpu3d_torch import f32_scope, resolve_device
 from tpu3d_torch.config import DenseConfig
 from tpu3d_torch.core import lie
-from tpu3d_torch.dense.grid import VoxelGrid, create_grid, eval_sh, grid_tensor
-from tpu3d_torch.dense.render import render_rays, render_rays_hierarchical
+from tpu3d_torch.dense.grid import VoxelGrid, create_grid, eval_sh, grid_tensor, resample_grid
+from tpu3d_torch.dense.occupancy import occupancy_from_grid
+from tpu3d_torch.dense.render import jitter_width, render_rays, render_rays_hierarchical
 from tpu3d_torch.io.ply import filter_point_cloud
 
 
@@ -157,23 +160,13 @@ def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
 
 # Aux outputs of the last train_plenoxel call, as tpu3d's: the learned
 # background SH coefficients, the exposure gains and the cameras dropped by
-# the camera gate (none: the gate is not ported), plus the logged losses
-# with their wall times ("log") and the step count ("steps").
+# the camera gate; and the port's own record: the logged losses with their
+# epoch, step in the epoch, update count and wall time ("log"), the update
+# count ("steps"), the occupancy refreshes
+# ("occupancy_refreshes": global step, epoch, occupied share), the gate's
+# probe ("camera_gate") and, per training phase, its grid resolution,
+# steps and log ("phases": coarse, then fine, or one phase).
 LAST_TRAIN_AUX: Dict[str, object] = {}
-
-# Training options the port does not have yet (ROADMAP Queue 1 item 7c).
-_NOT_PORTED = (("occupancy_prune", "occupancy-guided sampling (--occupancy)"),
-               ("contraction", "the contraction warp in training (--contraction)"),
-               ("coarse_epochs", "coarse-to-fine training (--coarse-epochs)"),
-               ("camera_gate", "the camera gate (--camera-gate)"))
-
-
-def _refuse_unported(cfg: DenseConfig) -> None:
-    """Raise NotImplementedError for a training option that is not ported."""
-    for field, what in _NOT_PORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(f"tpu3d_torch: {what} is not ported yet "
-                                      "(ROADMAP Queue 1 item 7c)")
 
 
 def _lr_schedule(cfg: DenseConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -332,11 +325,13 @@ def _sparsity_crop_loss(grid: torch.Tensor, origin, crop: int) -> torch.Tensor:
 
 class StepNoise(NamedTuple):
     """The random numbers of one training step. tpu3d draws them from the
-    step key: u = uniform(k, (B, S)) (sdf.py:71); under ``hierarchical``,
-    u from split(k)[0] over the n_coarse depths and u_fine from split(k)[1]
-    (render.py:428); the TV and sparsity crop origins from fold_in(k, 7) and
-    fold_in(k, 11) (train.py:302-306, 371-373)."""
-    u: torch.Tensor                                  # (B, S) or (B, n_coarse)
+    step key: u = uniform(k, (B, S)) (sdf.py:71, or through sample_pdf
+    under occupancy, occupancy.py:153); under ``hierarchical``, u from
+    split(k)[0] over the n_coarse depths and u_fine from split(k)[1]
+    (render.py:428); under contraction u covers the stratified three
+    quarters of the depths (render.py:75); the TV and sparsity crop origins
+    from fold_in(k, 7) and fold_in(k, 11) (train.py:302-306, 371-373)."""
+    u: torch.Tensor                                  # (B, jitter_width(S or n_coarse))
     u_fine: Optional[torch.Tensor] = None            # (B, n_fine)
     tv_origin: Optional[torch.Tensor] = None         # (3,) int64
     sparsity_origin: Optional[torch.Tensor] = None   # (3,) int64
@@ -354,7 +349,8 @@ def draw_step_noise(cfg: DenseConfig, grid_shape, n_rays: int,
     def uniform(n):
         return torch.rand((n_rays, n), generator=generator, device=device)
 
-    u = uniform(cfg.n_coarse if cfg.hierarchical else cfg.num_samples)
+    u = uniform(jitter_width(cfg.n_coarse if cfg.hierarchical else cfg.num_samples,
+                             cfg.contraction))
     u_fine = uniform(cfg.n_fine) if cfg.hierarchical else None
     tv = (origin([d - min(cfg.tv_crop, d - 1) for d in (X, Y, Z)])
           if cfg.tv_sigma or cfg.tv_sh else None)
@@ -366,15 +362,20 @@ def draw_step_noise(cfg: DenseConfig, grid_shape, n_rays: int,
 def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
                rays_d: torch.Tensor, rgb: torch.Tensor, cid: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[StepNoise] = None) -> torch.Tensor:
+               noise: Optional[StepNoise] = None, occ: Optional[torch.Tensor] = None,
+               base: Optional[VoxelGrid] = None) -> torch.Tensor:
     """One plenoxel training step on a ray batch, as tpu3d's step_body
     (train.py:420-443, 484-507): render with jittered depths (or
     hierarchically), MSE against the photographs' colours (after the
     exposure gains), plus the TV and sparsity priors; one backward gives the
     grid, exposure and background gradients; then the latents' Adam and the
     grid optimizer at the scheduled lr. ``noise`` injects the step's random
-    numbers; otherwise they are drawn from ``generator``. Updates ``state``
-    in place and returns the loss as a 0-d device tensor (no host sync)."""
+    numbers; otherwise they are drawn from ``generator``. ``occ`` is the
+    occupancy grid that guides the depths (cfg.occupancy_prune);
+    cfg.contraction warps the samples; ``base`` is a frozen cascade base
+    (the trained grid is then its detail layer, tpu3d's
+    make_train_step_packed(base_res=...)). Updates ``state`` in place and
+    returns the loss as a 0-d device tensor (no host sync)."""
     vg = state.grid
     if noise is None:
         noise = draw_step_noise(cfg, vg.grid.shape, rays_o.shape[0], generator, rays_o.device)
@@ -387,11 +388,14 @@ def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
         pred = render_rays_hierarchical(vg, rays_o, rays_d, cfg.near, cfg.far, cfg.n_coarse,
                                         cfg.n_fine, cfg.white_background,
                                         clip_aabb=cfg.per_ray_aabb, bg=bg,
-                                        u_coarse=noise.u, u_fine=noise.u_fine)
+                                        u_coarse=noise.u, u_fine=noise.u_fine, occ=occ,
+                                        occ_probes=cfg.occupancy_probes,
+                                        contract=cfg.contraction, base_vg=base)
     else:
         pred = render_rays(vg, rays_o, rays_d, cfg.near, cfg.far, cfg.num_samples,
                            cfg.white_background, clip_aabb=cfg.per_ray_aabb, bg=bg,
-                           perturb=True, u=noise.u)
+                           contract=cfg.contraction, base_vg=base, perturb=True, u=noise.u,
+                           occ=occ, occ_probes=cfg.occupancy_probes)
     loss = ((_exposure_apply(pred, gains, cid if has_exp else None) - rgb) ** 2).mean()
     if cfg.tv_sigma or cfg.tv_sh:
         tv_s, tv_c = _tv_crop_loss(vg.grid, noise.tv_origin, cfg.tv_crop)
@@ -478,29 +482,137 @@ def load_checkpoint(store, cfg: DenseConfig, steps_per_epoch: int, device
     return state, int(data["epoch"]), [float(x) for x in data["losses"]]
 
 
+def _chunk_plan(steps_per_epoch: int, chunk: int) -> List[Tuple[int, int]]:
+    """(first step, length) of each of tpu3d's scan chunks over an epoch
+    (train.py:548): the occupancy refresh is due at chunk starts only."""
+    out, b = [], 0
+    while b < steps_per_epoch:
+        k = min(chunk, steps_per_epoch - b)
+        out.append((b, k))
+        b += k
+    return out
+
+
+def _coarse_stage(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: VoxelGrid,
+                  verbose: bool, log_every: int, dev
+                  ) -> Tuple[VoxelGrid, List[float], DenseConfig, dict]:
+    """tpu3d's coarse-to-fine phase (train.py:559-594): train
+    cfg.coarse_epochs on ``grid`` resampled down by cfg.coarse_factor (each
+    dimension floored to a multiple of 8), camera gate off, then resample
+    the result back up. Returns (the upsampled grid, the coarse losses,
+    the config of the remaining epochs, the coarse phase's record)."""
+    f = max(int(cfg.coarse_factor), 2)
+    full_res = grid.resolution
+    coarse_res = tuple(max((r // f) // 8 * 8, 8) for r in full_res)
+    small = VoxelGrid(resample_grid(grid.grid, coarse_res), grid.min_bound.clone(),
+                      grid.max_bound.clone())
+    if verbose:
+        print(f"[dense] coarse stage: {coarse_res} for {cfg.coarse_epochs} epochs", flush=True)
+    sub = dataclasses.replace(cfg, epochs=cfg.coarse_epochs, coarse_epochs=0, camera_gate=False)
+    small, losses = train_plenoxel(dataset, sub, seed=seed, grid=small, verbose=verbose,
+                                   log_every=log_every, device=dev)
+    phase = dict(LAST_TRAIN_AUX["phases"][0], phase="coarse")
+    up = VoxelGrid(resample_grid(small.grid, full_res), grid.min_bound.clone(),
+                   grid.max_bound.clone())
+    rest = dataclasses.replace(cfg, epochs=cfg.epochs - cfg.coarse_epochs, coarse_epochs=0)
+    return up, losses, rest, phase
+
+
+def _camera_gate_probe(state: TrainState, dataset: RayDataset, cfg: DenseConfig,
+                       rng: np.random.Generator, dev) -> np.ndarray:
+    """(M,) probe MSE of each training camera under the current grid
+    (train.py:597-650): up to cfg.camera_gate_probe_rays of its rays,
+    chosen by ``rng``, rendered unjittered (cfg.num_samples, the box
+    clipping and the contraction of training, the background and exposure
+    latents) in chunks of 8,192, the squared error averaged per camera."""
+    cid = dataset.cam_ids
+    M = int(cid.max()) + 1
+    k = cfg.camera_gate_probe_rays
+    sel = []
+    for c in range(M):
+        ids = np.flatnonzero(cid == c)
+        if len(ids) > k:
+            ids = rng.choice(ids, k, replace=False)
+        sel.append(ids)
+    sel = np.concatenate(sel)
+    seg = cid[sel]
+    vg = VoxelGrid(state.grid.grid.detach(), state.grid.min_bound, state.grid.max_bound)
+    gains = None if state.exposure is None else state.exposure[0]
+    bg_sh = None if state.background is None else state.background[0]
+    preds = []
+    with torch.no_grad():
+        for s in range(0, len(sel), 8192):
+            ids = sel[s:s + 8192]
+            ro, rd = (torch.from_numpy(a[ids]).to(dev) for a in (dataset.origins, dataset.dirs))
+            out = render_rays(vg, ro, rd, cfg.near, cfg.far, cfg.num_samples,
+                              cfg.white_background, clip_aabb=cfg.per_ray_aabb,
+                              bg=_ray_background(bg_sh, rd), contract=cfg.contraction)
+            out = _exposure_apply(out, gains, torch.from_numpy(cid[ids].astype(np.int64)).to(dev))
+            preds.append(out.cpu().numpy())
+    err = (np.concatenate(preds) - dataset.rgb[sel]) ** 2
+    sums = np.bincount(seg, weights=err.mean(axis=1), minlength=M)
+    return sums / np.maximum(np.bincount(seg, minlength=M), 1)
+
+
+def apply_camera_gate(state: TrainState, dataset: RayDataset, cfg: DenseConfig,
+                      verbose: bool, dev) -> Tuple[np.ndarray, List[int], np.ndarray, float]:
+    """tpu3d's camera gate (train.py:653-679): probe every training
+    camera's fit (numpy default_rng(12345) picks the probe rays) and drop
+    those above median + cfg.camera_gate_mad x MAD, worst first, keeping at
+    least cfg.camera_gate_min_keep of the cameras. Returns (the rays to
+    keep (n,) bool, the dropped camera ids, each camera's probe MSE, the
+    threshold)."""
+    mse = _camera_gate_probe(state, dataset, cfg, np.random.default_rng(12345), dev)
+    med = float(np.median(mse))
+    mad = float(np.median(np.abs(mse - med))) * 1.4826
+    thr = med + cfg.camera_gate_mad * max(mad, 1e-9)
+    max_drop = int((1.0 - cfg.camera_gate_min_keep) * len(mse))
+    dropped = [int(c) for c in np.argsort(-mse)[:max_drop] if mse[c] > thr]
+    if verbose:
+        print(f"[dense] camera gate: dropped {dropped} of {len(mse)} cameras (median "
+              f"{med:.4f}, max {mse.max():.4f}, thr {thr:.4f})", flush=True)
+    return ~np.isin(dataset.cam_ids, dropped), dropped, mse, thr
+
+
 def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed: int = 0,
                    grid: Optional[VoxelGrid] = None, verbose: bool = True,
                    log_every: int = 170, checkpoint_store=None, resume: bool = False,
-                   device="cuda") -> Tuple[VoxelGrid, List[float]]:
+                   base_grid: Optional[VoxelGrid] = None, device="cuda"
+                   ) -> Tuple[VoxelGrid, List[float]]:
     """tpu3d's plenoxel training loop (train.py:729-917) on ``device``: the
     ray dataset is uploaded once; each epoch shuffles it on the device and
     each step indexes its batch there; the loss comes back to the host only
     every ``log_every`` steps; a checkpoint is saved after each epoch when a
-    store is given, and ``resume`` continues after the saved epoch. Returns
-    (the trained grid, the logged losses). The cascade base grid, the mesh
-    and the options of _refuse_unported are not ported."""
+    store is given, and ``resume`` continues after the saved epoch.
+
+    tpu3d's options, on its cadence: under cfg.contraction the grid spans
+    [-2, 2]^3; cfg.coarse_epochs first trains a coarse grid
+    (:func:`_coarse_stage`), then the fine phase starts afresh (optimizer,
+    schedule, latents); cfg.occupancy_prune starts from an all-occupied
+    grid and refreshes it from the live density at the first scan-chunk
+    boundary (cfg.scan_chunk steps, restarting each epoch) at or after each
+    cfg.occupancy_every global steps; cfg.camera_gate probes the cameras
+    once, at the start of epoch cfg.camera_gate_epoch, and the rest of the
+    run draws only the kept cameras' rays. ``base_grid`` is a frozen
+    cascade base: the trained grid is its detail layer. Returns (the
+    trained grid, the logged losses); LAST_TRAIN_AUX has the rest."""
     cfg = cfg or DenseConfig()
-    _refuse_unported(cfg)
     dev = resolve_device(device)
     n = len(dataset.origins)
     steps_per_epoch = max(n // cfg.batch_size, 1)
     if grid is None:
-        s = cfg.scene_scale
+        s = 2.0 if cfg.contraction else cfg.scene_scale
         grid = create_grid(cfg.grid_resolution, (-s, -s, -s), (s, s, s), device=dev)
+    phases: List[dict] = []
+    losses: List[float] = []
+    if cfg.coarse_epochs > 0 and cfg.epochs > cfg.coarse_epochs and not resume:
+        grid, losses, cfg, coarse = _coarse_stage(dataset, cfg, seed, grid, verbose, log_every,
+                                                  dev)
+        phases.append(coarse)
     n_cams = (int(dataset.cam_ids.max()) + 1
               if cfg.exposure and dataset.cam_ids is not None else None)
     state = init_state(cfg, grid, steps_per_epoch, n_cams)
-    losses: List[float] = []
+    del grid
     start_epoch = 0
     if resume and checkpoint_store is not None:
         ck = load_checkpoint(checkpoint_store, cfg, steps_per_epoch, dev)
@@ -509,36 +621,71 @@ def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed:
             start_epoch += 1
             if verbose:
                 print(f"[dense] resumed at epoch {start_epoch}", flush=True)
+    base = None if base_grid is None else VoxelGrid(
+        base_grid.grid.detach(), base_grid.min_bound, base_grid.max_bound)
     o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
                              for a in (dataset.origins, dataset.dirs, dataset.rgb))
     cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
                if n_cams is not None else None)
+    occ = None
+    if cfg.occupancy_prune:
+        f = cfg.occupancy_factor
+        occ = torch.ones(tuple(-(-d // f) for d in state.grid.resolution), dtype=torch.bool,
+                         device=dev)
+    chunk = 1 if n < cfg.batch_size else max(int(cfg.scan_chunk), 1)
+    plan = _chunk_plan(steps_per_epoch, chunk)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    log = []
+    log, refreshes = [], []
+    gate, gate_dropped, kept = None, [], None
+    global_step, next_occ, step0 = 0, cfg.occupancy_every, state.step
+    B = cfg.batch_size
     t0 = time.time()
     with f32_scope():
         for epoch in range(start_epoch, cfg.epochs):
+            if (cfg.camera_gate and gate is None and dataset.cam_ids is not None
+                    and epoch >= cfg.camera_gate_epoch):
+                keep, gate_dropped, mse, thr = apply_camera_gate(state, dataset, cfg, verbose, dev)
+                gate = dict(epoch=epoch, step=global_step, probe_mse=mse.tolist(),
+                            threshold=thr, dropped=gate_dropped)
+                if gate_dropped:
+                    kept = torch.from_numpy(np.flatnonzero(keep)).to(dev)
+                    plan = _chunk_plan(max(len(kept) // B, 1), chunk)
             perm = torch.randperm(n, generator=gen, device=dev)
-            for b in range(steps_per_epoch):
-                idx = perm[b * cfg.batch_size:(b + 1) * cfg.batch_size]
-                loss = train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
-                                  None if cid_all is None else cid_all[idx], generator=gen)
-                if b % log_every == 0:
-                    lv = float(loss)
-                    losses.append(lv)
-                    log.append({"epoch": epoch, "step": b, "loss": lv,
-                                "seconds": time.time() - t0})
-                    if verbose:
-                        rate = (b + 1) * cfg.batch_size / (time.time() - t0)
-                        print(f"[dense] epoch {epoch} step {b}/{steps_per_epoch} "
-                              f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+            if kept is not None:
+                perm = kept[torch.randperm(len(kept), generator=gen, device=dev)]
+            for b, k_steps in plan:
+                if occ is not None and global_step >= next_occ:
+                    occ = occupancy_from_grid(state.grid.grid.detach(), cfg.occupancy_factor,
+                                              cfg.occupancy_threshold)
+                    refreshes.append(dict(step=global_step, epoch=epoch,
+                                          occupied=float(occ.float().mean())))
+                    next_occ += cfg.occupancy_every
+                for j in range(b, b + k_steps):
+                    idx = perm[j * B:(j + 1) * B]
+                    loss = train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
+                                      None if cid_all is None else cid_all[idx], generator=gen,
+                                      occ=occ, base=base)
+                    if j % log_every == 0:
+                        lv = float(loss)
+                        losses.append(lv)
+                        log.append({"epoch": epoch, "step": j, "update": state.step,
+                                    "loss": lv, "seconds": time.time() - t0})
+                        if verbose:
+                            rate = (j + 1) * B / (time.time() - t0)
+                            print(f"[dense] epoch {epoch} step {j}/{steps_per_epoch} "
+                                  f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+                global_step += k_steps
             if checkpoint_store is not None:
                 save_checkpoint(checkpoint_store, state, epoch, losses)
+    phases.append(dict(phase="detail" if base is not None else "fine" if phases else "train",
+                       res=list(state.grid.resolution), steps=state.step - step0, log=log,
+                       seconds=time.time() - t0))
     LAST_TRAIN_AUX.clear()
     LAST_TRAIN_AUX.update(
         background=None if state.background is None else state.background[0].cpu().numpy(),
         exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
-        dropped_cameras=[], log=log, steps=state.step)
+        dropped_cameras=gate_dropped, log=log, steps=state.step,
+        occupancy_refreshes=refreshes, camera_gate=gate, phases=phases)
     vg = state.grid
     return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses
