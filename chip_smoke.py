@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels   # phases 1-3 only
     python3 chip_smoke.py --dense     # phases 1-2 and 5-8 only
     python3 chip_smoke.py --full      # phases 1-2 and 9 only
+    python3 chip_smoke.py --sfm       # phases 1-2 and 10 only
 
 Phases, one line each, any failure exits non-zero:
 
@@ -70,6 +71,19 @@ Phases, one line each, any failure exits non-zero:
                after a similarity alignment to the scene's poses, peak memory
                and launches. Then the split run's reconstruct stage once more
                under torch.profiler, for its busy share and top kernels.
+ 10. sfm     — the SfM entry points on the same 24 views from arrays, at the
+               same config: (a) the staged functions cli.extract -> match ->
+               reconstruct(from_matches=True) -> export into a temporary
+               store, each stage's files and tpu3d's keys checked, the result
+               held equal (registered set, points, mean reprojection) to a
+               one-process reconstruct in the same process; (b)
+               reconstruct(mode="global"): pose-graph component, registered,
+               points, reprojection, centre and rotation error, stage
+               seconds, peak memory, launches, then its reconstruct stage
+               under torch.profiler; (c) cli.full with register_all and the
+               edge-consistency gate: dropped and low-confidence cameras,
+               finite poses; (d) refine_focal from 1.25x the scene's focal on
+               (a)'s one-process observations: the focal within 1%.
 
 The kernel rows (phase 3): patch_sample_kernel, top2_kernel,
 trilinear_kernel, trilinear_grad_kernel, orient_desc_kernel. The line before
@@ -178,6 +192,38 @@ PR5_FULL_SPLIT = (24, 5250, 46605, "0.1599")
 # Seeds 0/1/2: 24/24 each, 0.160347 / 0.158472 / 0.160955 px.
 TPU3D_CPU_REGISTERED = 24
 MAX_FULL_REPROJ_PX = 0.165923
+# The sfm phase: tpu3d's run_global_reconstruction on make_scene(SCENE_SEED)
+# at these shapes on the CPU (default PipelineConfig, the scene's focal), over
+# three seeds of its draws, as
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_reconstruct.py global`
+# prints: seeds 0/1/2 registered 24/24 each, 4,627 / 5,259 / 3,951 points,
+# 0.161105 / 0.158679 / 0.163634 px. The port's global mode must register at
+# least the fewest less one, at a mean reprojection error no worse than the
+# worst plus twice the spread.
+TPU3D_CPU_GLOBAL_REGISTERED = 24
+MAX_GLOBAL_REPROJ_PX = 0.173545
+# refine_focal on the split one-process run's final observations, started at
+# 1.25x the scene's focal (tests/test_ba.py's 25% error), tpu3d's default
+# search (24 golden-section steps, BA max_iters 12, cg_iters 24): within 1%.
+FOCAL_START = 1.25
+MAX_FOCAL_ERR = 0.01
+# The staged commands' artifacts and the keys each must hold (tpu3d's).
+STAGED_KEYS = {
+    "features.npz": {"keypoints", "keypoints_px", "descriptors", "valid", "colors_bgr",
+                     "image_size"},
+    "features_meta.json": {"names", "downscale", "seconds"},
+    "pairs_meta.json": {"registrations", "adjacency", "next_track", "seconds"},
+    "matches.npz": {"kp_track", "parent", "r0_e0_idx_ref", "r0_e0_idx_new", "r0_e0_track",
+                    "r0_e0_uv_ref", "r0_e0_uv_new", "r0_e0_colors", "r0_e0_relRt"},
+    "reconstruction.npz": {"cams", "registered", "points", "colors_bgr", "track_ids",
+                           "extrinsics"},
+    "reconstruction_meta.json": {"registered_names", "mean_reproj_px", "num_obs", "mode",
+                                 "downscale", "seconds", "sfm_phase_seconds", "sfm_backend",
+                                 "low_confidence_names", "per_camera_reproj_px"},
+}
+EXPORT_FILES = ("img_list.txt", "all_points.npy", "all_descriptors.npy", "all_colors.npy",
+                "img_size.npy", "img_pairs.npy", "all_matches.npy", "reconstructed_img.txt",
+                "cameras_extrinsic.npy", "points_3d.npy", "result.ply")
 # orient_desc_kernel against its plain version: theta within 1e-5 rad and
 # samples within orient_desc.sample_tolerance (1e-5 x max|g|, plus what the
 # theta difference can move a sample) except at near ties (< 5%).
@@ -1024,10 +1070,10 @@ def _run_full(torch, dev, scene) -> dict:
     return fused
 
 
-def _profile_reconstruct(torch, dev, scene) -> None:
-    """The split run's stages once more; its reconstruct stage under
-    torch.profiler: wall, device busy share, the engine's host share and
-    the kernels that take the most device time."""
+def _profile_reconstruct(torch, dev, scene, mode: str = "incremental") -> None:
+    """The split run's stages once more; its reconstruct stage (in ``mode``)
+    under torch.profiler: wall, device busy share, the engine's host share
+    and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1037,10 +1083,11 @@ def _profile_reconstruct(torch, dev, scene) -> None:
     feats = P.run_extraction((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
     adj = P.run_retrieval(feats, cfg, device=dev)
     regs, ts = P.run_matching(feats, adj, cfg, verbose=False, device=dev)
+    run = P.run_global_reconstruction if mode == "global" else P.run_reconstruction
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        P.run_reconstruction(feats, regs, ts, cfg, verbose=False, adj=adj, device=dev)
+        run(feats, regs, ts, cfg, verbose=False, adj=adj, device=dev)
         torch.cuda.synchronize()
         wall = time.time() - t0
     timers = dict(P.LAST_SFM_TIMERS)
@@ -1049,11 +1096,166 @@ def _profile_reconstruct(torch, dev, scene) -> None:
     n_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                     and not getattr(e, "is_user_annotation", False))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile reconstruct: wall {wall:.3f} s (profiled), device busy {busy:.1f} ms "
+    label = "" if mode == "incremental" else f" ({mode})"
+    print(f"profile reconstruct{label}: wall {wall:.3f} s (profiled), device busy {busy:.1f} ms "
           f"({busy / (wall * 1e3):.1%}), {n_kernels} device events; engine host "
           f"{timers['host']} s ({timers['host'] / wall:.1%} of the wall), timers {timers}; "
           "top kernels: "
           + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top), flush=True)
+
+
+def _check_artifacts(art: Path) -> None:
+    """Each staged command's files exist and hold tpu3d's keys; export
+    wrote the reference's output/ files (the codebook where joblib is
+    installed)."""
+    import importlib.util
+
+    for name, want in STAGED_KEYS.items():
+        path = art / name
+        if not path.exists():
+            _fail(f"sfm (staged): {name} was not written")
+        if name.endswith(".npz"):
+            with np.load(path) as z:
+                keys = set(z.files)
+        else:
+            keys = set(json.loads(path.read_text()))
+        if not want <= keys:
+            _fail(f"sfm (staged): {name} lacks {sorted(want - keys)}")
+    files = EXPORT_FILES + (("bow_codebook.plk",) if importlib.util.find_spec("joblib") else ())
+    missing = [f for f in files if not (art / "output" / f).exists()]
+    if missing:
+        _fail(f"sfm (export): {missing} not written")
+
+
+def _run_sfm(torch, dev, scene, root: Path) -> None:
+    """The port's SfM entry points on the 24-view scene from arrays, each
+    path with the launch counts set to 0 just before it and read just
+    after: (a) the staged functions extract -> match -> reconstruct
+    (from_matches, incremental) -> export into ``root``, held equal to the
+    one-process run; (b) reconstruct(mode="global"), then its reconstruct
+    stage under torch.profiler; (c) full with register_all and the
+    edge-consistency gate; (d) refine_focal on (a)'s one-process
+    observations."""
+    from tpu3d_torch import cli
+    from tpu3d_torch.ba.focal import refine_focal
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+    from tpu3d_torch.sfm import pipeline as P
+
+    cfg = _full_config(scene)
+    images = (scene["gray"], scene["rgb"])
+    shutil.rmtree(root, ignore_errors=True)
+    art = root / "staged"
+
+    def run(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    def launched(label, launches):
+        for name in SLICE_KERNELS:
+            if launches[name] <= 0:
+                _fail(f"sfm ({label}): {name} was not launched")
+
+    # (a) the staged path, then the one-process run it must equal
+    reset_launches()
+    secs = {}
+    for name, fn in (("extract", lambda: cli.extract(images, str(art), cfg, device=dev)),
+                     ("match", lambda: cli.match(str(art), cfg, device=dev)),
+                     ("reconstruct", lambda: cli.reconstruct(str(art), cfg, from_matches=True,
+                                                             device=dev)),
+                     ("export", lambda: cli.export(str(art), device=dev))):
+        out, secs[name], peak = run(fn)
+        if name == "reconstruct":
+            staged = out
+    launches = dict(LAUNCHES)
+    launched("staged", launches)
+    _check_artifacts(art)
+    with np.load(art / "reconstruction.npz") as z:
+        staged_reg = z["registered"]
+    (rec, _), one_s, _ = run(lambda: P.reconstruct(images, cfg, verbose=False, device=dev))
+    same = (np.array_equal(staged_reg, rec.registered) and staged["points"] == len(rec.points)
+            and staged["mean_reproj_px"] == rec.mean_reproj_px)
+    print(f"sfm (staged): stage s { {k: round(v, 3) for k, v in secs.items()} }; registered "
+          f"{staged['registered']}/{N_VIEWS}, points {staged['points']}, mean reprojection "
+          f"{staged['mean_reproj_px']:.6f} px; one-process run ({one_s:.3f} s) registered "
+          f"{len(rec.registered)}, points {len(rec.points)}, mean reprojection "
+          f"{rec.mean_reproj_px:.6f} px; equal: {'yes' if same else 'no'}; artifacts and "
+          f"export files present; launches {launches}", flush=True)
+    if not same:
+        _fail("sfm (staged): the staged path's registered set, points or mean reprojection "
+              "differ from the one-process run's on the same card")
+
+    # (b) global mode
+    reset_launches()
+    (grec, gsecs), g_s, g_peak = run(lambda: P.reconstruct(images, cfg, verbose=False,
+                                                           mode="global", device=dev))
+    glaunches = dict(LAUNCHES)
+    timers = dict(P.LAST_SFM_TIMERS)
+    reg = grec.registered
+    cen, rot = _align(grec.cams, scene["R"][reg], scene["t"][reg])
+    print(f"sfm (global): {g_s:.3f} s; stage s { {k: round(v, 3) for k, v in gsecs.items()} }; "
+          f"pose graph component {timers['pose_graph_component']}/{N_VIEWS}; registered "
+          f"{len(reg)}/{N_VIEWS} (tpu3d on the CPU {TPU3D_CPU_GLOBAL_REGISTERED}), points "
+          f"{len(grec.points)}, observations {grec.num_obs}, mean reprojection "
+          f"{grec.mean_reproj_px:.6f} px (limit {MAX_GLOBAL_REPROJ_PX}); camera centre error "
+          f"/ spread median {np.median(cen):.3g} max {cen.max():.3g}; rotation error median "
+          f"{np.median(rot):.4f} max {rot.max():.4f} deg; peak memory {g_peak:.2f} GiB; "
+          f"engine s {timers}; launches {glaunches}", flush=True)
+    launched("global", glaunches)
+    if len(reg) < TPU3D_CPU_GLOBAL_REGISTERED - 1:
+        _fail(f"sfm (global): {len(reg)} cameras registered < {TPU3D_CPU_GLOBAL_REGISTERED} "
+              "- 1 (tpu3d on the CPU)")
+    if not grec.mean_reproj_px <= MAX_GLOBAL_REPROJ_PX:
+        _fail(f"sfm (global): mean reprojection {grec.mean_reproj_px:.6f} px > "
+              f"{MAX_GLOBAL_REPROJ_PX} (tpu3d's worst over three seeds + twice their spread)")
+    _profile_reconstruct(torch, dev, scene, mode="global")
+
+    # (c) both options on
+    opts = dataclasses.replace(cfg, sfm=dataclasses.replace(cfg.sfm, register_all=True,
+                                                            edge_consistency_gate=True))
+    reset_launches()
+    summary, o_s, _ = run(lambda: cli.full(images, str(root / "options"), opts, device=dev))
+    olaunches = dict(LAUNCHES)
+    dropped = P.LAST_SFM_TIMERS["edge_gate_dropped"]
+    with np.load(root / "options" / "reconstruction.npz") as z:
+        ocams, opoints, oreg = z["cams"], z["points"], z["registered"]
+    ometa = json.loads((root / "options" / "reconstruction_meta.json").read_text())
+    low = ometa["low_confidence_names"]
+    as_staged = np.array_equal(oreg, staged_reg)
+    print(f"sfm (register_all + edge gate): {o_s:.3f} s; edge gate dropped {dropped}, "
+          f"low-confidence {len(low)} {low}; registered {summary['registered']}/{N_VIEWS} "
+          f"(the staged run's set: {'yes' if as_staged else 'no'}), points {summary['points']}, "
+          f"mean reprojection {summary['mean_reproj_px']:.6f} px; launches {olaunches}",
+          flush=True)
+    launched("options", olaunches)
+    if not (np.isfinite(summary["mean_reproj_px"]) and np.isfinite(ocams).all()
+            and np.isfinite(opoints).all()):
+        _fail("sfm (register_all + edge gate): reprojection error, poses or points not finite")
+
+    # (d) refine_focal on the one-process run's final observations
+    f_true = scene["focal"]
+    fixed = np.zeros(len(rec.cams), np.float32)
+    fixed[0] = 1.0
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        rec.cams, rec.points, rec.obs_cam, rec.obs_point, rec.obs_uv_px,
+        np.ones(len(rec.obs_cam), np.float32), fixed)]
+    iters = 24
+    (f, st), f_s, f_peak = run(lambda: refine_focal(*args, focal0=FOCAL_START * f_true,
+                                                    iters=iters))
+    err = abs(f - f_true) / f_true
+    print(f"sfm (refine_focal): {len(rec.cams)} cameras, {len(rec.points)} points, "
+          f"{len(rec.obs_cam)} observations; start {FOCAL_START * f_true:.3f}, refined "
+          f"{f:.4f} against the scene's {f_true:.4f} (error {err:.4%}, limit "
+          f"{MAX_FOCAL_ERR:.0%}); {iters + 4} BA solves in {f_s:.3f} s; final cost "
+          f"{float(st.cost):.6g}; peak memory {f_peak:.2f} GiB", flush=True)
+    if not err <= MAX_FOCAL_ERR:
+        _fail(f"sfm (refine_focal): focal {f:.4f} more than {MAX_FOCAL_ERR:.0%} from "
+              f"{f_true:.4f}")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _run_dense(torch, dev, scene, root) -> dict:
@@ -1622,6 +1824,9 @@ def main(argv=()) -> int:
     mode.add_argument("--full", action="store_true",
                       help="phases 1-2 and 9 only: build, then the full runs and the profiled "
                       "reconstruct (no kernel table)")
+    mode.add_argument("--sfm", action="store_true",
+                      help="phases 1-2 and 10 only: build, then the SfM entry points (staged "
+                      "commands, global mode, the options, refine_focal; no kernel table)")
     mode.add_argument("--dense", action="store_true",
                       help="phases 1-2 and 5-8 only: build, then the dense, train, recipe and "
                       "options phases (no kernel table)")
@@ -1654,12 +1859,16 @@ def main(argv=()) -> int:
     scene = make_scene()
     print(f"scene: {N_VIEWS} views {WIDTH}x{HEIGHT} focal {scene['focal']:.1f} "
           f"rendered in {time.time() - t0:.1f} s", flush=True)
+    build = Path(__file__).resolve().parent / "build"
     if opts.full:
         _run_full(torch, dev, scene)
         _profile_reconstruct(torch, dev, scene)
         print(smi[0] if smi else "nvidia-smi: no output", flush=True)
         return 0
-    build = Path(__file__).resolve().parent / "build"
+    if opts.sfm:
+        _run_sfm(torch, dev, scene, build / "chip_smoke_sfm")
+        print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+        return 0
     roots = {k: build / f"chip_smoke_{k}" for k in ("dense", "train", "recipe", "options")}
     t0 = time.time()
     dense = make_dense_artifacts(str(roots["dense"]), scene)
@@ -1717,8 +1926,9 @@ def main(argv=()) -> int:
             # that launches it).
             launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
             _profile_reconstruct(torch, dev, scene)
+            _run_sfm(torch, dev, scene, build / "chip_smoke_sfm")
     finally:
-        for root in roots.values():
+        for root in [*roots.values(), build / "chip_smoke_sfm"]:
             shutil.rmtree(root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]

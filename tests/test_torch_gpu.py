@@ -501,3 +501,61 @@ def test_bundle_adjust_on_the_card(cuda):
     assert abs(gpu.cost.item() - cpu.cost.item()) <= 1e-4 * cpu.cost.item()
     assert (gpu.cams.cpu() - cpu.cams).abs().max().item() <= 1e-4
     assert (gpu.points.cpu() - cpu.points).abs().max().item() <= 1e-4
+
+
+def _small_scene():
+    """chip_smoke's synthetic scene cut to 8 views of 320x240, with the
+    default config at its focal and 512 keypoints."""
+    import dataclasses
+
+    from chip_smoke import make_scene
+    from tpu3d_torch.config import CameraConfig, PipelineConfig
+
+    sc = make_scene(seed=0, n_views=8, width=320, height=240)
+    cfg = PipelineConfig()
+    cam = CameraConfig(focal_length=sc["focal"])
+    cfg = dataclasses.replace(cfg, camera=cam, sfm=dataclasses.replace(cfg.sfm, camera=cam),
+                              frontend=dataclasses.replace(cfg.frontend, max_keypoints=512))
+    return sc, cfg
+
+
+def test_global_mode_on_the_card(cuda):
+    """reconstruct(mode="global") on the card, twice: every camera
+    registered at under a pixel, patch_sample and top2 launched, and the
+    second run the same registered set and the same bits in the cameras
+    (BA's sums add in a fixed order; the pose graph is numpy)."""
+    from tpu3d_torch.kernels import reset_launches
+    from tpu3d_torch.sfm import pipeline as P
+
+    sc, cfg = _small_scene()
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        rec, _ = P.reconstruct((sc["gray"], sc["rgb"]), cfg, verbose=False, mode="global",
+                               device=cuda)
+        assert LAUNCHES["patch_sample_kernel"] > 0 and LAUNCHES["top2_kernel"] > 0
+        runs.append(rec)
+    assert len(runs[0].registered) == 8 and runs[0].mean_reproj_px <= 1.0
+    np.testing.assert_array_equal(runs[0].registered, runs[1].registered)
+    np.testing.assert_array_equal(runs[0].cams, runs[1].cams)
+
+
+def test_staged_functions_on_the_card(cuda, tmp_path):
+    """extract -> match -> reconstruct(from_matches) -> export on the card
+    give full's registered count, points and mean reprojection error, and
+    tpu3d's artifact files."""
+    from tpu3d_torch import cli
+
+    sc, cfg = _small_scene()
+    art = tmp_path / "art"
+    cli.extract((sc["gray"], sc["rgb"]), str(art), cfg, device=cuda)
+    cli.match(str(art), cfg, device=cuda)
+    got = cli.reconstruct(str(art), cfg, from_matches=True, device=cuda)
+    exported = cli.export(str(art), device=cuda)
+    ref = cli.full((sc["gray"], sc["rgb"]), str(tmp_path / "full"), cfg, device=cuda)
+    assert (got["registered"], got["points"], got["mean_reproj_px"]) == \
+        (ref["registered"], ref["points"], ref["mean_reproj_px"])
+    for name in ("features.npz", "features_meta.json", "pairs_meta.json", "matches.npz",
+                 "reconstruction.npz", "reconstruction_meta.json"):
+        assert (art / name).exists(), name
+    assert "reconstructed_img/cameras_extrinsic/points_3d/result.ply" in exported["written"]

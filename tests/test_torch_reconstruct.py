@@ -8,6 +8,7 @@ Tolerances, each with its reason, are stated where they are asserted.
 import copy
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -417,6 +418,38 @@ def _aligned_center_error(cams, ref_cams):
     return err.max() / np.linalg.norm(B, axis=1).max()
 
 
+def _tpu3d_pnp_draws(monkeypatch, cfg):
+    """Feed the port's engine tpu3d's PnP draws: its engine key
+    PRNGKey(0), split once per prepared registration, gumbel (256,
+    PNP_CAP)."""
+    M = cfg.sfm.ransac.num_hypotheses // 2
+    key = [jax.random.PRNGKey(0)]
+
+    def tpu3d_draws(self, n):
+        key[0], sub = jax.random.split(key[0])
+        g = np.asarray(jax.random.gumbel(sub, (M, TE.PNP_CAP)))[:, :n]
+        return torch.from_numpy(np.ascontiguousarray(g))
+
+    monkeypatch.setattr(TE.IncrementalSfM, "_pnp_draws", tpu3d_draws)
+
+
+def _port_inputs(tpu3d_sfm):
+    """tpu3d's features, registrations and tracks as the port's objects."""
+    jf = tpu3d_sfm["feats"]
+    feats = TP.ExtractedFeatures.from_numpy(jf.names, jf.keypoints, jf.keypoints_px, jf.valid,
+                                            jf.colors_bgr, jf.image_size, jf.descriptors,
+                                            device="cpu")
+    regs = [TE.ImageRegistration(img=r.img, edges=[TE.EdgeObservations(
+        **{f.name: getattr(e, f.name) for f in dataclasses.fields(e)}) for e in r.edges])
+        for r in copy.deepcopy(tpu3d_sfm["regs"])]
+    return feats, regs, copy.deepcopy(tpu3d_sfm["ts"])
+
+
+def _scene_cams(sfm_scene, registered):
+    return np.stack([np.concatenate([so3_log_np(R), t]) for R, t in
+                     zip(sfm_scene["R"], sfm_scene["t"])])[registered]
+
+
 def test_engine_on_tpu3d_registrations(sfm_scene, tpu3d_sfm, monkeypatch):
     """run_reconstruction on tpu3d's own registrations and tracks, with
     tpu3d's PnP draws (its engine key PRNGKey(0), split once per prepared
@@ -428,24 +461,10 @@ def test_engine_on_tpu3d_registrations(sfm_scene, tpu3d_sfm, monkeypatch):
     measured 1.4e-7 (mean reprojection 0.2231344 vs 0.2231345 px), and 1e-3
     still separates a misplaced camera (the scene's neighbouring centres
     are ~0.08 of the spread apart)."""
-    M = sfm_scene["cfg"].sfm.ransac.num_hypotheses // 2
-    key = [jax.random.PRNGKey(0)]
-
-    def tpu3d_draws(self, n):
-        key[0], sub = jax.random.split(key[0])
-        g = np.asarray(jax.random.gumbel(sub, (M, TE.PNP_CAP)))[:, :n]
-        return torch.from_numpy(np.ascontiguousarray(g))
-
-    monkeypatch.setattr(TE.IncrementalSfM, "_pnp_draws", tpu3d_draws)
-    jf = tpu3d_sfm["feats"]
-    feats = TP.ExtractedFeatures.from_numpy(jf.names, jf.keypoints, jf.keypoints_px, jf.valid,
-                                            jf.colors_bgr, jf.image_size, jf.descriptors,
-                                            device="cpu")
-    regs = [TE.ImageRegistration(img=r.img, edges=[TE.EdgeObservations(
-        **{f.name: getattr(e, f.name) for f in dataclasses.fields(e)}) for e in r.edges])
-        for r in tpu3d_sfm["regs"]]
-    rec = TP.run_reconstruction(feats, regs, copy.deepcopy(tpu3d_sfm["ts"]), sfm_scene["cfg"],
-                                verbose=False, adj=tpu3d_sfm["adj"], device="cpu")
+    _tpu3d_pnp_draws(monkeypatch, sfm_scene["cfg"])
+    feats, regs, ts = _port_inputs(tpu3d_sfm)
+    rec = TP.run_reconstruction(feats, regs, ts, sfm_scene["cfg"], verbose=False,
+                                adj=tpu3d_sfm["adj"], device="cpu")
     ref = tpu3d_sfm["rec"]
     np.testing.assert_array_equal(rec.registered, ref.registered)
     assert len(rec.points) == len(ref.points)
@@ -470,18 +489,248 @@ def test_reconstruct_end_to_end(sfm_scene, tpu3d_sfm):
     assert set(timings) == {"extract", "retrieve", "match", "reconstruct", "total"}
 
 
-def test_unported_options_raise(sfm_scene):
+def test_global_on_tpu3d_registrations(sfm_scene, tpu3d_sfm, monkeypatch):
+    """run_global_reconstruction on tpu3d's own registrations and tracks,
+    with tpu3d's PnP draws, against tpu3d's global mode on the same
+    inputs: the same registered set and point count, the mean reprojection
+    error within 2%, the camera centres within 1e-3 of their spread after a
+    similarity alignment (the reasons of test_engine_on_tpu3d_registrations;
+    the pose graph is numpy f64 on both sides)."""
+    _tpu3d_pnp_draws(monkeypatch, sfm_scene["cfg"])
+    ref = JP.run_global_reconstruction(
+        tpu3d_sfm["feats"], copy.deepcopy(tpu3d_sfm["regs"]),
+        _jax_tracks(tpu3d_sfm["ts"]), sfm_scene["jcfg"], verbose=False, adj=tpu3d_sfm["adj"])
+    feats, regs, ts = _port_inputs(tpu3d_sfm)
+    rec = TP.run_global_reconstruction(feats, regs, ts, sfm_scene["cfg"], verbose=False,
+                                       adj=tpu3d_sfm["adj"], device="cpu")
+    np.testing.assert_array_equal(rec.registered, ref.registered)
+    assert len(rec.points) == len(ref.points)
+    assert abs(rec.mean_reproj_px - ref.mean_reproj_px) <= 0.02 * ref.mean_reproj_px
+    assert _aligned_center_error(rec.cams, ref.cams) < 1e-3
+    assert len(rec.low_confidence) == 0
+    assert TP.LAST_SFM_TIMERS["pose_graph_component"] == N_VIEWS
+
+
+def _jax_tracks(ts):
+    """tpu3d's TrackStore holding the port copy's union-find state."""
+    from tpu3d.matching import TrackStore as JTrackStore
+
+    out = JTrackStore(*ts.kp_track.shape, capacity=ts.capacity)
+    out.kp_track = ts.kp_track.copy()
+    out.parent = ts.parent.copy()
+    out.next_track = ts.next_track
+    return out
+
+
+def test_reconstruct_global_end_to_end(sfm_scene, tpu3d_sfm):
+    """reconstruct(mode="global") from the files with the port's own draws,
+    at the decision level: registered >= tpu3d's less one, mean
+    reprojection error <= 1 px, and camera centres within 1% of their
+    spread of the scene's after a similarity alignment."""
+    rec, timings = TP.reconstruct(sfm_scene["dir"], sfm_scene["cfg"], verbose=False,
+                                  mode="global", device="cpu")
+    assert len(rec.registered) >= len(tpu3d_sfm["rec"].registered) - 1
+    assert rec.mean_reproj_px <= 1.0
+    assert _aligned_center_error(rec.cams, _scene_cams(sfm_scene, rec.registered)) < 1e-2
+
+
+def test_unported_options_raise(sfm_scene, tmp_path):
+    """What the port still refuses, each naming its ROADMAP item: densify
+    --model sdf (7d) and --mesh (10), the learned frontend and matcher (9),
+    approximate top-k retrieval (12)."""
+    from tpu3d_torch import cli
+
+    common = ["--images", sfm_scene["dir"], "--artifacts", str(tmp_path), "--device", "cpu"]
+    for cmd, flags, item in (("densify", ["--model", "sdf"], "7d"),
+                             ("densify", ["--mesh", "auto"], "item 10"),
+                             ("full", ["--frontend", "disk"], "item 9"),
+                             ("extract", ["--frontend", "superpoint"], "item 9"),
+                             ("match", ["--matcher", "lightglue"], "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main([cmd, *common, *flags])
     cfg = sfm_scene["cfg"]
+    approx = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                   approx_topk_recall=0.95))
     gray = np.zeros((2, 64, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TP.reconstruct((gray, np.zeros((2, 64, 64, 3), np.uint8)), cfg, mode="global",
-                       device="cpu")
-    gate = dataclasses.replace(cfg, sfm=dataclasses.replace(cfg.sfm, edge_consistency_gate=True))
-    with pytest.raises(NotImplementedError, match="edge_consistency_gate"):
-        TP.run_reconstruction(None, [], None, gate, device="cpu")
-    eng = TE.IncrementalSfM(2, cfg.sfm)
-    with pytest.raises(NotImplementedError, match="6b"):
-        eng.register_low_confidence([])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TP.run_extraction((gray, np.zeros((2, 64, 64, 3), np.uint8)), approx, verbose=False,
+                          device="cpu")
+
+
+def _run_cli(argv):
+    """tpu3d_torch.cli.main(argv): (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from tpu3d_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    return code, out.getvalue(), err.getvalue()
+
+
+def _cli_common(sfm_scene, art):
+    return ["--images", sfm_scene["dir"], "--artifacts", str(art), "--focal",
+            str(sfm_scene["focal"]), "--device", "cpu", "--quiet", "--max-keypoints", str(K)]
+
+
+@pytest.fixture(scope="module")
+def staged_cli(sfm_scene, tmp_path_factory):
+    """The port's staged commands on the scene's files: extract, match,
+    reconstruct --from-matches in both modes (the global one into a copy
+    of the store), export, and the one-process full run; each command's
+    last stdout line parsed."""
+    import shutil
+
+    root = tmp_path_factory.mktemp("staged")
+    art, glob = root / "art", root / "art_global"
+    out = {"art": art, "art_global": glob}
+    for name, argv in (("extract", ["extract"]), ("match", ["match"]),
+                       ("incremental", ["reconstruct", "--from-matches", "--ply",
+                                        str(root / "cloud.ply")])):
+        code, stdout, _ = _run_cli([argv[0], *_cli_common(sfm_scene, art), *argv[1:]])
+        assert code == 0
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
+    shutil.copytree(art, glob)
+    code, stdout, _ = _run_cli(["reconstruct", *_cli_common(sfm_scene, glob), "--from-matches",
+                                "--mode", "global"])
+    out["global"] = json.loads(stdout.strip().splitlines()[-1])
+    code, stdout, _ = _run_cli(["export", *_cli_common(sfm_scene, art)])
+    assert code == 0
+    out["export"] = json.loads(stdout.strip().splitlines()[-1])
+    code, stdout, _ = _run_cli(["full", *_cli_common(sfm_scene, root / "full")])
+    out["full"] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def test_cli_staged_commands(sfm_scene, tpu3d_sfm, staged_cli):
+    """extract -> match -> reconstruct --from-matches (both modes) ->
+    export with --device cpu: each stage's artifacts hold tpu3d's file
+    names and keys and load in tpu3d's loaders; the incremental result from
+    the files is the one-process full run's (the same registered count,
+    points and mean reprojection error: the files carry every input
+    exactly); both modes reach tpu3d's decision level."""
+    from tpu3d.io.artifacts import ArtifactStore as JaxArtifactStore
+    from tpu3d.io.matches import load_matches as jax_load_matches
+
+    art = staged_cli["art"]
+    store = JaxArtifactStore(str(art))
+    feats = store.load("features")
+    assert set(feats) == {"keypoints", "keypoints_px", "descriptors", "valid", "colors_bgr",
+                          "image_size"}
+    assert feats["descriptors"].shape == (N_VIEWS, K, 128)
+    assert set(store.load_json("features_meta")) == {"names", "downscale", "seconds"}
+    assert set(store.load_json("pairs_meta")) == {"registrations", "adjacency", "next_track",
+                                                  "seconds"}
+    regs, ts, adj = jax_load_matches(str(art), N_VIEWS, K, 400_000)
+    assert len(regs) == staged_cli["match"]["images"]
+    assert sum(len(r.edges) for r in regs) == staged_cli["match"]["edges"]
+    assert set(adj) == set(range(N_VIEWS))
+    for key in ("art", "art_global"):
+        rec = JaxArtifactStore(str(staged_cli[key])).load("reconstruction")
+        meta = JaxArtifactStore(str(staged_cli[key])).load_json("reconstruction_meta")
+        assert set(rec) == {"cams", "registered", "points", "colors_bgr", "track_ids",
+                            "extrinsics"}
+        assert set(meta) == {"registered_names", "mean_reproj_px", "num_obs", "mode",
+                             "downscale", "seconds", "sfm_phase_seconds", "sfm_backend",
+                             "low_confidence_names", "per_camera_reproj_px"}
+        assert meta["mode"] == ("global" if key == "art_global" else "incremental")
+    inc, full = staged_cli["incremental"], staged_cli["full"]
+    assert (inc["registered"], inc["points"], inc["mean_reproj_px"]) == \
+        (full["registered"], full["points"], full["mean_reproj_px"])
+    for mode in ("incremental", "global"):
+        assert staged_cli[mode]["registered"] >= len(tpu3d_sfm["rec"].registered) - 1
+        assert staged_cli[mode]["mean_reproj_px"] <= 1.0
+    assert set(staged_cli["export"]["written"]) == {
+        "img_list.txt", "all_points/descriptors/colors, img_size", "bow_codebook.plk",
+        "img_pairs/all_matches", "reconstructed_img/cameras_extrinsic/points_3d/result.ply"}
+
+
+def _same_npy(a, b):
+    """Equal .npy contents, object arrays element by element."""
+    x, y = np.load(a, allow_pickle=True), np.load(b, allow_pickle=True)
+    assert x.shape == y.shape and x.dtype == y.dtype
+    if x.dtype == object:
+        for u, v in zip(x.ravel(), y.ravel()):
+            np.testing.assert_array_equal(u, v)
+    else:
+        np.testing.assert_array_equal(x, y)
+
+
+def test_export_matches_tpu3d(staged_cli, tmp_path):
+    """tpu3d's export of the same artifacts: every file equal but the
+    codebook, whose k-means draws differ (jax.random against a
+    torch.Generator); it matches in k and shape."""
+    import joblib
+
+    from tpu3d.io.reference_export import export_reference_layout
+
+    mine = staged_cli["export"]["out"]
+    ref_dir = str(tmp_path / "ref")
+    assert export_reference_layout(str(staged_cli["art"]), ref_dir) == \
+        staged_cli["export"]["written"]
+    names = sorted(os.listdir(ref_dir))
+    assert names == sorted(os.listdir(mine))
+    for name in names:
+        a, b = os.path.join(mine, name), os.path.join(ref_dir, name)
+        if name == "bow_codebook.plk":
+            (k, cb), (k_ref, cb_ref) = joblib.load(a), joblib.load(b)
+            assert k == k_ref and cb.shape == cb_ref.shape and np.isfinite(cb).all()
+        elif name.endswith(".npy"):
+            _same_npy(a, b)
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), name
+
+
+def test_cli_reconstruct_from_tpu3d_matches(sfm_scene, tpu3d_sfm, tmp_path):
+    """tpu3d's features and match artifacts (its save_matches on its own
+    slice, as its `match` writes them) into the port's reconstruct
+    --from-matches, both modes: tpu3d's decision level, and camera centres
+    within 1% of their spread of the scene's after a similarity alignment."""
+    from tpu3d.io.artifacts import ArtifactStore as JaxArtifactStore
+    from tpu3d.io.matches import save_matches as jax_save_matches
+
+    jf = tpu3d_sfm["feats"]
+    store = JaxArtifactStore(str(tmp_path))
+    store.save("features", keypoints=jf.keypoints, keypoints_px=jf.keypoints_px,
+               descriptors=jf.descriptors, valid=jf.valid, colors_bgr=jf.colors_bgr,
+               image_size=jf.image_size)
+    store.save_json("features_meta", {"names": jf.names, "downscale": 1, "seconds": 0.0})
+    jax_save_matches(str(tmp_path), copy.deepcopy(tpu3d_sfm["regs"]),
+                     _jax_tracks(tpu3d_sfm["ts"]), tpu3d_sfm["adj"])
+    for mode in ("incremental", "global"):
+        code, stdout, _ = _run_cli(["reconstruct", *_cli_common(sfm_scene, tmp_path),
+                                    "--from-matches", "--mode", mode])
+        assert code == 0
+        out = json.loads(stdout.strip().splitlines()[-1])
+        assert out["registered"] >= len(tpu3d_sfm["rec"].registered) - 1
+        assert out["mean_reproj_px"] <= 1.0
+        rec = store.load("reconstruction")
+        assert _aligned_center_error(rec["cams"],
+                                     _scene_cams(sfm_scene, rec["registered"])) < 1e-2
+
+
+def test_cli_missing_artifacts_exit_1(sfm_scene, staged_cli, tmp_path):
+    """reconstruct --from-matches without match artifacts, and match or
+    reconstruct without features, print tpu3d's message and exit 1."""
+    import shutil
+
+    feats_only = tmp_path / "feats_only"
+    feats_only.mkdir()
+    for name in ("features.npz", "features_meta.json"):
+        shutil.copy(staged_cli["art"] / name, feats_only / name)
+    code, _, err = _run_cli(["reconstruct", *_cli_common(sfm_scene, feats_only),
+                             "--from-matches"])
+    assert code == 1 and "run `match` first" in err
+    for cmd in (["match"], ["reconstruct", "--from-matches"]):
+        code, _, err = _run_cli([cmd[0], *_cli_common(sfm_scene, tmp_path / "empty"), *cmd[1:]])
+        assert code == 1 and "run `extract` first" in err
 
 
 def test_cli_full_then_densify(sfm_scene, tmp_path, capsys):
@@ -523,7 +772,9 @@ if __name__ == "__main__":
     # on the CPU, over three seeds of its draws (retrieval, gate, engine
     # and rescue keys): the registered count and mean reprojection error
     # that chip_smoke.py's full phase holds the port to.
-    #     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_reconstruct.py
+    #     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_reconstruct.py [global]
+    # With ``global``, tpu3d's run_global_reconstruction instead: what
+    # chip_smoke.py's sfm phase holds the port's global mode to.
     import sys
     import tempfile
     import time
@@ -532,6 +783,7 @@ if __name__ == "__main__":
     import tpu3d.sfm.engine as JE
 
     jax.config.update("jax_platforms", "cpu")
+    global_mode = sys.argv[1:] == ["global"]
     base_engine = JE.IncrementalSfM
     rows = []
     with tempfile.TemporaryDirectory() as d:
@@ -548,10 +800,11 @@ if __name__ == "__main__":
             feats = JP.run_extraction(sc["dir"], jcfg, verbose=False)
             adj = JP.run_retrieval(feats, jcfg, seed=seed)
             regs, ts = JP.run_matching(feats, adj, jcfg, seed=seed + 1, verbose=False)
-            rec = JP.run_reconstruction(feats, regs, ts, jcfg, verbose=False, adj=adj,
-                                        seed=seed + 3)
+            run = JP.run_global_reconstruction if global_mode else JP.run_reconstruction
+            rec = run(feats, regs, ts, jcfg, verbose=False, adj=adj, seed=seed + 3)
             rows.append((len(rec.registered), rec.mean_reproj_px, len(rec.points)))
-            print(f"tpu3d on the CPU, seed {seed}: registered {len(rec.registered)}/"
+            print(f"tpu3d {'global' if global_mode else 'incremental'} on the CPU, seed "
+                  f"{seed}: registered {len(rec.registered)}/"
                   f"{chip_smoke.N_VIEWS}, points {len(rec.points)}, mean reprojection "
                   f"{rec.mean_reproj_px:.6f} px, {time.time() - t0:.1f} s", flush=True)
     reg = min(r[0] for r in rows)

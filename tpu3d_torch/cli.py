@@ -1,9 +1,18 @@
-"""The port's entry points: tpu3d's ``cli full`` (images to poses, points and
-PLY, tpu3d/cli.py:1167-1223), ``cli densify`` (training, :417-820), ``cli
-densify --eval-only`` (:847-920) and ``cli render`` (:1011-1115).
+"""The port's entry points: tpu3d's staged sparse commands ``cli extract``,
+``match``, ``reconstruct`` and ``export`` (tpu3d/cli.py:147-229, :286-416,
+:1118-1125), ``cli full`` (images to poses, points and PLY, :1167-1223),
+``cli densify`` (training, :417-820), ``cli densify --eval-only``
+(:847-920) and ``cli render`` (:1011-1115).
 
+    python -m tpu3d_torch.cli extract --images DIR --artifacts DIR [--downscale N]
+        [--limit N] [tpu3d's sparse-stage flags]
+    python -m tpu3d_torch.cli match --images DIR --artifacts DIR
+    python -m tpu3d_torch.cli reconstruct --images DIR --artifacts DIR
+        [--from-matches] [--mode incremental|global] [--ply out.ply]
+    python -m tpu3d_torch.cli export --images DIR --artifacts DIR [--out DIR]
     python -m tpu3d_torch.cli full --images DIR --artifacts DIR [--downscale N]
-        [--limit N] [--ply out.ply] [tpu3d's sparse-stage flags]
+        [--limit N] [--mode incremental|global] [--register-all] [--ply out.ply]
+        [tpu3d's sparse-stage flags]
     python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--epochs N]
         [--ray-stride S] [--norm coremax|core|legacy] [--hierarchical]
         [--contraction [--norm-core-q Q --norm-core-radius R --band-core-radius B]]
@@ -17,19 +26,33 @@ densify --eval-only`` (:847-920) and ``cli render`` (:1011-1115).
     python -m tpu3d_torch.cli densify --eval-only --images DIR --artifacts DIR
     python -m tpu3d_torch.cli render --images DIR --artifacts DIR [--orbit N]
 
-They read and write tpu3d's artifacts unchanged: ``full`` writes
-``features_meta``, ``reconstruction`` and ``reconstruction_meta`` (then the
-PLY) and prints tpu3d's JSON summary line; training reads
+They read and write tpu3d's artifacts unchanged: ``extract`` writes
+``features`` and ``features_meta``; ``match`` reads them and writes the
+match artifacts (``pairs_meta.json`` + ``matches.npz``, io/matches.py);
+``reconstruct`` reads the features and, with ``--from-matches``, the
+matches (else it matches afresh and saves them), and like ``full`` writes
+``reconstruction`` and ``reconstruction_meta`` (then the PLY); ``export``
+writes the reference's ``output/`` protocol (io/reference_export.py). Each
+sparse command prints tpu3d's summary as its last stdout line, in JSON; a
+missing input artifact prints "run `extract` first" or "run `match`
+first" and exits 1. Training reads
 ``reconstruction`` and ``reconstruction_meta`` and writes ``dense_ckpt``,
 ``dense_grid`` (and a cascade's ``dense_grid_detail``), ``mesh_grid``,
 ``dense_meta`` and ``dense_result``; eval and
 render take the normalization, band, sample count, per-ray box clipping and
-contraction the grid was trained with from ``dense_meta``. ``full``,
+contraction the grid was trained with from ``dense_meta``. ``extract``,
+``match``, ``reconstruct``, ``export``, ``full``,
 ``densify``, ``densify_from_rays``, ``densify_eval_only`` and
 ``render_artifacts`` are the functions behind the commands; they run on
-the card unless given ``device="cpu"``. ``densify --model sdf`` and
-``--mesh`` are not ported yet and raise NotImplementedError naming their
-ROADMAP item.
+the card unless given ``device="cpu"``. ``extract`` and ``full`` take a
+directory of images or the decoded ``(gray_u8, rgb_u8)`` arrays.
+
+Not ported: extract's multi-process branches (ROADMAP Queue 1 item 10),
+the SequentialPrematcher's ``prematch.npz`` memo (item 12; ``extract``
+still removes a stale one, as tpu3d's does), and tpu3d's XLA compile cache
+and dispatch counts, which are XLA machinery. ``densify --model sdf``,
+``--mesh``, ``--frontend disk|superpoint`` and ``--matcher lightglue`` raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -481,6 +504,29 @@ def _trusted_split(meta: dict, per_view, names) -> Optional[Tuple[float, list]]:
             [n for i, n in enumerate(names) if i not in ok])
 
 
+def _save_reconstruction(store: ArtifactStore, rec, cfg: PipelineConfig, mode: str,
+                         downscale: int, seconds: float, sfm_timers: dict) -> None:
+    """``reconstruction`` and ``reconstruction_meta`` as tpu3d's
+    cmd_reconstruct and cmd_full write them."""
+    store.save("reconstruction", cams=rec.cams, registered=rec.registered, points=rec.points,
+               colors_bgr=rec.colors_bgr, track_ids=rec.track_ids, extrinsics=rec.extrinsics())
+    store.save_json("reconstruction_meta", {
+        "registered_names": rec.registered_names(),
+        "mean_reproj_px": rec.mean_reproj_px,
+        "num_obs": rec.num_obs,
+        "mode": mode,
+        "downscale": downscale,
+        "seconds": seconds,
+        "sfm_phase_seconds": sfm_timers,
+        "sfm_backend": cfg.sfm.backend,
+        # --register-all cameras: in the pose set, out of the BA gauge and
+        # (by default) out of dense training.
+        "low_confidence_names": [rec.image_names[i] for i in rec.low_confidence],
+        "per_camera_reproj_px": {rec.image_names[i]: round(e, 3)
+                                 for i, e in rec.per_cam_reproj_px.items()},
+    })
+
+
 def full(images, artifacts: Artifacts, cfg: PipelineConfig, names: Optional[Sequence[str]] = None,
          downscale: int = 1, ply: str = "", mode: str = "incremental", verbose: bool = False,
          device="cuda") -> dict:
@@ -498,21 +544,8 @@ def full(images, artifacts: Artifacts, cfg: PipelineConfig, names: Optional[Sequ
     store = _store(artifacts)
     store.save_json("features_meta", {"names": list(rec.image_names), "downscale": downscale,
                                       "num_images": len(rec.image_names)})
-    store.save("reconstruction", cams=rec.cams, registered=rec.registered, points=rec.points,
-               colors_bgr=rec.colors_bgr, track_ids=rec.track_ids, extrinsics=rec.extrinsics())
-    store.save_json("reconstruction_meta", {
-        "registered_names": rec.registered_names(),
-        "mean_reproj_px": rec.mean_reproj_px,
-        "num_obs": rec.num_obs,
-        "mode": mode,
-        "downscale": downscale,
-        "seconds": round(timings["total"], 1),
-        "sfm_phase_seconds": P.LAST_SFM_TIMERS,
-        "sfm_backend": cfg.sfm.backend,
-        "low_confidence_names": [rec.image_names[i] for i in rec.low_confidence],
-        "per_camera_reproj_px": {rec.image_names[i]: round(e, 3)
-                                 for i, e in rec.per_cam_reproj_px.items()},
-    })
+    _save_reconstruction(store, rec, cfg, mode, downscale, round(timings["total"], 1),
+                         P.LAST_SFM_TIMERS)
     if ply:
         write_ply(ply, rec.points, rec.colors_bgr)
     return {
@@ -522,6 +555,128 @@ def full(images, artifacts: Artifacts, cfg: PipelineConfig, names: Optional[Sequ
         "extract_timers": dict(P.LAST_EXTRACT_TIMERS),
         "match_timers": dict(P.LAST_MATCH_TIMERS),
     }
+
+
+def extract(images, artifacts: Artifacts, cfg: PipelineConfig,
+            names: Optional[Sequence[str]] = None, downscale: int = 1, verbose: bool = False,
+            device="cuda") -> dict:
+    """tpu3d's ``cmd_extract`` (its one-process branch): features of every
+    image on ``device``, saved as ``features`` and ``features_meta``.
+    ``images`` is a directory or the decoded ``(gray_u8, rgb_u8)`` arrays.
+    A stale ``prematch.npz`` is removed, as tpu3d's extract does (the port
+    writes none). Returns the summary the command prints."""
+    from tpu3d_torch.sfm.pipeline import run_extraction
+
+    store = _store(artifacts)
+    t0 = time.time()
+    try:
+        os.remove(os.path.join(store.root, "prematch.npz"))
+    except FileNotFoundError:
+        pass
+    timers: Dict[str, float] = {}
+    feats = run_extraction(images, cfg, list(names) if names is not None else None, downscale,
+                           verbose, device=device, timers=timers)
+    store.save("features", keypoints=feats.keypoints, keypoints_px=feats.keypoints_px,
+               descriptors=feats.descriptors, valid=feats.valid, colors_bgr=feats.colors_bgr,
+               image_size=feats.image_size)
+    seconds = time.time() - t0
+    store.save_json("features_meta", {"names": feats.names, "downscale": downscale,
+                                      "seconds": seconds})
+    return {"images": len(feats.names), "seconds": round(seconds, 1),
+            "extract_timers": {k: round(v, 2) for k, v in timers.items()}}
+
+
+def load_features(artifacts: Artifacts, device="cuda"):
+    """(ExtractedFeatures with its tensors on ``device``, features_meta)
+    from the store; FileNotFoundError where ``extract`` has not run."""
+    from tpu3d_torch.sfm.pipeline import ExtractedFeatures
+
+    store = _store(artifacts)
+    data = store.load("features")
+    meta = store.load_json("features_meta")
+    if data is None or meta is None:
+        raise FileNotFoundError("no features artifact — run `extract` first")
+    return ExtractedFeatures.from_numpy(
+        meta["names"], data["keypoints"], data["keypoints_px"], data["valid"],
+        data["colors_bgr"], data["image_size"], data["descriptors"], device=device), meta
+
+
+def match(artifacts: Artifacts, cfg: PipelineConfig, verbose: bool = False,
+          device="cuda") -> dict:
+    """tpu3d's ``cmd_match``: retrieval and matching on ``device`` over the
+    saved features, saved as the match artifacts. ``cfg``'s focal is at the
+    features' scale (the command divides by their downscale). Returns the
+    summary the command prints."""
+    from tpu3d_torch.io.matches import save_matches
+    from tpu3d_torch.sfm.pipeline import run_matching, run_retrieval
+
+    store = _store(artifacts)
+    t_load = time.time()
+    feats, _ = load_features(store, device)
+    t0 = time.time()
+    adj = run_retrieval(feats, cfg, device=device)
+    t_ret = time.time()
+    timers: Dict[str, object] = {}
+    regs, ts = run_matching(feats, adj, cfg, verbose=verbose, device=device, timers=timers)
+    t_m = time.time()
+    timers.update(load_upload=round(t0 - t_load, 2), retrieval=round(t_ret - t0, 2),
+                  match_total=round(t_m - t_ret, 2))
+    save_matches(store.root, regs, ts, adj, time.time() - t0)
+    timers["save"] = round(time.time() - t_m, 2)
+    return {"images": len(regs), "edges": sum(len(r.edges) for r in regs),
+            "seconds": round(time.time() - t0, 1),
+            "match_timers": {k: round(v, 2) if isinstance(v, float) else v
+                             for k, v in timers.items()}}
+
+
+def reconstruct(artifacts: Artifacts, cfg: PipelineConfig, mode: str = "incremental",
+                from_matches: bool = False, ply: str = "", verbose: bool = False,
+                device="cuda") -> dict:
+    """tpu3d's ``cmd_reconstruct``: the saved features, and with
+    ``from_matches`` the saved matches (else retrieval and matching afresh,
+    then saved), through the incremental or global reconstruction on
+    ``device``; writes ``reconstruction`` and ``reconstruction_meta``, then
+    the PLY. ``cfg``'s focal is at the features' scale. FileNotFoundError
+    where an input artifact is missing. Returns the summary the command
+    prints."""
+    from tpu3d_torch.io.matches import load_matches, save_matches
+    from tpu3d_torch.sfm import pipeline as P
+
+    store = _store(artifacts)
+    feats, meta = load_features(store, device)
+    t0 = time.time()
+    if from_matches:
+        loaded = load_matches(store.root, len(feats.names), feats.keypoints.shape[1],
+                              cfg.sfm.max_tracks)
+        if loaded is None:
+            raise FileNotFoundError("no saved matches — run `match` first")
+        regs, ts, adj = loaded
+    else:
+        adj = P.run_retrieval(feats, cfg, device=device)
+        regs, ts = P.run_matching(feats, adj, cfg, verbose=verbose, device=device)
+        save_matches(store.root, regs, ts, adj, time.time() - t0)
+    run = P.run_global_reconstruction if mode == "global" else P.run_reconstruction
+    rec = run(feats, regs, ts, cfg, verbose=verbose, adj=adj, device=device)
+    _save_reconstruction(store, rec, cfg, mode, meta.get("downscale", 1), time.time() - t0,
+                         P.LAST_SFM_TIMERS)
+    if ply:
+        n = write_ply(ply, rec.points, rec.colors_bgr)
+        print(f"wrote {n} points -> {ply}")
+    out = {"registered": len(rec.registered), "points": int(len(rec.points)),
+           "mean_reproj_px": rec.mean_reproj_px, "seconds": round(time.time() - t0, 1)}
+    if len(rec.low_confidence):
+        out["low_confidence"] = len(rec.low_confidence)
+    return out
+
+
+def export(artifacts: Artifacts, out: str = "", device="cuda") -> dict:
+    """tpu3d's ``cmd_export``: the reference's ``output/`` protocol from
+    the saved artifacts into ``out`` (default ARTIFACTS/output)."""
+    from tpu3d_torch.io.reference_export import export_reference_layout
+
+    root = _store(artifacts).root
+    out = out or os.path.join(root, "output")
+    return {"out": out, "written": export_reference_layout(root, out, device)}
 
 
 def build_config(args) -> PipelineConfig:
@@ -558,21 +713,80 @@ def build_config(args) -> PipelineConfig:
     )
 
 
-def _cmd_full(args) -> None:
-    from tpu3d_torch.io.images import list_images
-
-    for flag, bad, item in (("--mode global", args.mode == "global", "Queue 1 item 8"),
-                            ("--register-all", args.register_all, "Queue 1 item 6b"),
-                            (f"--frontend {args.frontend}", args.frontend != "classical",
+def _refuse_unported(args, command: str) -> None:
+    for flag, bad, item in ((f"--frontend {args.frontend}", args.frontend != "classical",
                              "Queue 1 item 9"),
                             (f"--matcher {args.matcher}", args.matcher != "mnn", "Queue 1 item 9")):
         if bad:
-            raise NotImplementedError(f"tpu3d_torch: full {flag} is not ported yet (ROADMAP {item})")
+            raise NotImplementedError(f"tpu3d_torch: {command} {flag} is not ported yet "
+                                      f"(ROADMAP {item})")
+
+
+def _image_names(args) -> list:
+    from tpu3d_torch.io.images import list_images
+
     names = list_images(args.images)
-    if args.limit:
-        names = names[: args.limit]
-    out = full(args.images, args.artifacts, build_config(args), names, args.downscale, args.ply,
-               args.mode, verbose=not args.quiet, device=args.device)
+    return names[: args.limit] if args.limit else names
+
+
+def _rescaled_config(args, meta: dict) -> PipelineConfig:
+    """build_config with the focal at the saved features' scale
+    (tpu3d/cli.py:332-341)."""
+    cfg = build_config(args)
+    cam = CameraConfig(focal_length=args.focal / meta.get("downscale", 1))
+    return dataclasses.replace(cfg, camera=cam, sfm=dataclasses.replace(cfg.sfm, camera=cam))
+
+
+def _features_meta(args) -> dict:
+    meta = ArtifactStore(args.artifacts).load_json("features_meta")
+    if meta is None:
+        print("no features artifact — run `extract` first", file=sys.stderr)
+        sys.exit(1)
+    return meta
+
+
+def _cmd_full(args) -> None:
+    _refuse_unported(args, "full")
+    out = full(args.images, args.artifacts, build_config(args), _image_names(args),
+               args.downscale, args.ply, args.mode, verbose=not args.quiet, device=args.device)
+    print(json.dumps(out))
+
+
+def _cmd_extract(args) -> None:
+    _refuse_unported(args, "extract")
+    out = extract(args.images, args.artifacts, build_config(args), _image_names(args),
+                  args.downscale, verbose=not args.quiet, device=args.device)
+    print(f"extracted {out['images']} images in {out['seconds']:.1f}s -> "
+          f"{args.artifacts}/features.npz")
+    print(json.dumps(out))
+
+
+def _cmd_match(args) -> None:
+    _refuse_unported(args, "match")
+    out = match(args.artifacts, _rescaled_config(args, _features_meta(args)),
+                verbose=not args.quiet, device=args.device)
+    print(f"matched {out['images']} images / {out['edges']} edges in {out['seconds']:.1f}s")
+    print(json.dumps(out))
+
+
+def _cmd_reconstruct(args) -> None:
+    _refuse_unported(args, "reconstruct")
+    try:
+        out = reconstruct(args.artifacts, _rescaled_config(args, _features_meta(args)),
+                          args.mode, args.from_matches, args.ply, verbose=not args.quiet,
+                          device=args.device)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        sys.exit(1)
+    print(json.dumps(out))
+
+
+def _cmd_export(args) -> None:
+    try:
+        out = export(args.artifacts, args.out, args.device)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        sys.exit(1)
     print(json.dumps(out))
 
 
@@ -666,9 +880,11 @@ def _cmd_densify(args) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(prog="tpu3d_torch",
-                                description="tpu3d's pipeline (full) and dense stage (train, "
-                                            "eval, render) on the GPU")
-    p.add_argument("command", choices=["full", "densify", "render"])
+                                description="tpu3d's sparse stages (extract, match, "
+                                            "reconstruct, export, full) and dense stage "
+                                            "(train, eval, render) on the GPU")
+    p.add_argument("command", choices=["extract", "match", "reconstruct", "export", "full",
+                                       "densify", "render"])
     p.add_argument("--images", required=True)
     p.add_argument("--artifacts", default="artifacts")
     p.add_argument("--downscale", type=int, default=1)
@@ -695,6 +911,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--five-point", dest="five_point", action="store_true", default=True)
     p.add_argument("--eight-point", dest="five_point", action="store_false")
     p.add_argument("--ply", default="")
+    p.add_argument("--from-matches", action="store_true",
+                   help="reconstruct: from the saved match artifacts (no re-matching)")
     p.add_argument("--num-samples", type=int, default=192)
     p.add_argument("--eval-only", action="store_true",
                    help="densify: score the saved dense_grid (+detail) on held-out views")
@@ -759,12 +977,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--orbit", type=int, default=0,
                    help="render: also N novel views along the registered trajectory")
     p.add_argument("--render-stride", type=int, default=1)
-    p.add_argument("--out", default="", help="render: PNG directory (default ARTIFACTS/renders)")
+    p.add_argument("--out", default="", help="render: PNG directory (default ARTIFACTS/renders); "
+                   "export: destination (default ARTIFACTS/output)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--cpu", dest="device", action="store_const", const="cpu",
                    help="the same as --device cpu")
     args = p.parse_args(argv)
-    {"full": _cmd_full, "densify": _cmd_densify, "render": _cmd_render}[args.command](args)
+    {"extract": _cmd_extract, "match": _cmd_match, "reconstruct": _cmd_reconstruct,
+     "export": _cmd_export, "full": _cmd_full, "densify": _cmd_densify,
+     "render": _cmd_render}[args.command](args)
 
 
 if __name__ == "__main__":

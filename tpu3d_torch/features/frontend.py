@@ -142,7 +142,8 @@ def extract_features(images, config: Optional[FrontendConfig] = None,
     cfg = config or FrontendConfig()
     if cfg.approx_topk_recall > 0.0:
         raise NotImplementedError("approx_topk_recall > 0 (lax.approx_max_k) is not "
-                                  "ported; the port's detector takes the exact top-k")
+                                  "ported (ROADMAP Queue 1 item 12); the port's detector "
+                                  "takes the exact top-k")
     dev = resolve_device(device)
     images = torch.as_tensor(images).to(dev)
     if images.dtype == torch.uint8:

@@ -549,10 +549,10 @@ class IncrementalSfM:
         tracks: x_new = rel_R x_ref + s rel_t, s the median depth ratio of
         the known points against their unit-baseline midpoint
         triangulation. Gated on the ratios' spread and on most anchors
-        reprojecting within 8 thresholds. Numpy, as tpu3d's."""
-        if relaxed:
-            raise NotImplementedError("the relaxed fallback serves register_low_confidence, "
-                                      "not ported yet (ROADMAP Queue 1 item 6b)")
+        reprojecting within 8 thresholds. Numpy, as tpu3d's. ``relaxed``
+        (the --register-all pass) skips the spread gate, takes the best
+        candidate whatever its support, and with none chains the first
+        registered reference's relative pose at scale 1."""
 
         def midpoint_np(Rrel, trel, xr, xn):
             d0 = np.concatenate([xr, np.ones((len(xr), 1), np.float32)], -1)
@@ -603,7 +603,7 @@ class IncrementalSfM:
                 continue
             s = float(np.median(z_ratio))
             mad = float(np.median(np.abs(z_ratio - s))) / max(abs(s), 1e-9)
-            if mad > 0.25:
+            if mad > 0.25 and not relaxed:
                 continue
             R_j = e.rel_R @ R_r
             t_j = e.rel_R @ t_r + s * e.rel_t
@@ -614,6 +614,19 @@ class IncrementalSfM:
             good = int(np.sum(ok_z & (err < 8.0 * self.cfg.ransac.threshold_px)))
             if best is None or good > best[0]:
                 best = (good, R_j, t_j, len(err))
+        if relaxed:
+            if best is None:
+                for e in edges:
+                    if e.rel_R is None or not self.has_cam[e.ref_img]:
+                        continue
+                    R_r = so3_exp_np(self.cams[e.ref_img, :3])
+                    t_r = self.cams[e.ref_img, 3:6]
+                    info["fallback_relpose_inliers"] = "chained_s1"
+                    return np.concatenate([so3_log_np(e.rel_R @ R_r),
+                                           e.rel_R @ t_r + e.rel_t]).astype(np.float32)
+                return None
+            info["fallback_relpose_inliers"] = f"{best[0]}/{best[3]} (relaxed)"
+            return np.concatenate([so3_log_np(best[1]), best[2]]).astype(np.float32)
         if best is None or best[0] < 6 or best[0] < 0.5 * best[3]:
             return None
         info["fallback_relpose_inliers"] = f"{best[0]}/{best[3]}"
@@ -941,18 +954,53 @@ class IncrementalSfM:
                 self.global_ba(final=True)
         mean_err, n_obs = self.mean_reprojection_error()
         per_cam = self.per_camera_reproj()
+        low_conf: List[int] = []
         if self.cfg.register_all and registrations:
-            self.register_low_confidence(registrations, verbose=verbose)
+            low_conf = self.register_low_confidence(registrations, verbose=verbose)
         track_ids = np.flatnonzero(self.point_valid)
         registered = np.flatnonzero(self.has_cam)
+        prob = self._gather_global_problem()
+        obs = {}
+        if prob is not None:
+            cam_slots, cam_idx, uniq_tracks, pt_idx, _, keys = prob
+            obs = dict(obs_cam=np.searchsorted(registered, cam_slots[cam_idx]),
+                       obs_point=np.searchsorted(track_ids, uniq_tracks[pt_idx]),
+                       obs_uv_px=self.obs_uv[keys].copy())
         return Reconstruction(
             image_names=list(image_names), registered=registered,
             cams=self.cams[registered].copy(), points=self.points[track_ids].copy(),
             colors_bgr=self.point_color[track_ids].copy(), track_ids=track_ids,
-            mean_reproj_px=mean_err, num_obs=n_obs, per_cam_reproj_px=per_cam)
+            mean_reproj_px=mean_err, num_obs=n_obs,
+            low_confidence=np.asarray(sorted(low_conf), np.int64), per_cam_reproj_px=per_cam,
+            **obs)
 
     def register_low_confidence(self, registrations, verbose: bool = False) -> List[int]:
-        """tpu3d's --register-all pass (relaxed relative-pose chaining of
-        every still-unregistered image after the final BA)."""
-        raise NotImplementedError("register_low_confidence (SfMConfig.register_all) is not "
-                                  "ported yet (ROADMAP Queue 1 item 6b)")
+        """The --register-all pass (SfMConfig.register_all): after the final
+        BA, place every still-unregistered image by relaxed relative-pose
+        chaining. Placed cameras record no observations, so they move
+        neither the gauge, the points nor the reported reprojection error.
+        Three chained rounds let an image whose only edges point at another
+        placed camera follow one round later. Returns the placed images."""
+        by_img = {r.img: r for r in registrations}
+        placed: List[int] = []
+        for _ in range(3):
+            progress = False
+            for img, reg in by_img.items():
+                if self.has_cam[img]:
+                    continue
+                info: dict = {"img": img}
+                cam = self._relative_pose_fallback(img, reg.edges, info, relaxed=True)
+                if cam is None:
+                    continue
+                self.cams[img] = cam
+                self.has_cam[img] = True
+                self.num_registered += 1
+                self.reg_order.append(img)
+                placed.append(img)
+                progress = True
+                if verbose:
+                    print(f"[sfm] low-confidence registration: img {img} "
+                          f"({info.get('fallback_relpose_inliers')})", flush=True)
+            if not progress:
+                break
+        return placed

@@ -9,7 +9,10 @@ reconstruct, and ``reconstruct`` which runs them all.
                    results, with union-find tracks
   4. reconstruct — the incremental engine (sfm/engine.py) over the
                    registrations, in fixpoint rounds, then a re-matching
-                   rescue of images still unregistered and the final BA
+                   rescue of images still unregistered and the final BA;
+                   or global mode: a pose-graph initialisation
+                   (sfm/posegraph.py), joint triangulation and global BA,
+                   then PnP recall and the same rescue
 
 ``run_matching`` returns ``(List[ImageRegistration], TrackStore)``, the
 input of ``run_reconstruction``. tpu3d's vmap over a block of pairs is a
@@ -30,6 +33,7 @@ import torch
 
 from tpu3d_torch import f32_scope, resolve_device
 from tpu3d_torch.config import PipelineConfig, resolve_sfm_backend
+from tpu3d_torch.core.lie import so3_exp_np, so3_log_np
 from tpu3d_torch.features.frontend import extract_features, sample_colors
 from tpu3d_torch.geometry.estimators import find_essential_ransac, lo_hypotheses
 from tpu3d_torch.geometry.fivepoint import five_point_ransac
@@ -41,7 +45,8 @@ from tpu3d_torch.matching.mnn import match_descriptors
 from tpu3d_torch.matching.pairs import build_view_graph
 from tpu3d_torch.matching.tracks import TrackStore
 from tpu3d_torch.sfm.engine import (MAX_REFS, EdgeObservations, ImageRegistration,
-                                    IncrementalSfM)
+                                    IncrementalSfM, _stack_padded, triangulate_and_gate)
+from tpu3d_torch.sfm.posegraph import pose_graph_init
 from tpu3d_torch.sfm.scene import Reconstruction
 
 
@@ -114,7 +119,7 @@ def run_extraction(
     timers.update(load=0.0, frontend=0.0)
     if cfg.frontend.model != "classical":
         raise NotImplementedError(
-            f"frontend model {cfg.frontend.model!r} is not ported yet")
+            f"frontend model {cfg.frontend.model!r} is not ported yet (ROADMAP Queue 1 item 9)")
     B = cfg.frontend.batch_size
     if isinstance(images, (str, os.PathLike)):
         img_dir = os.fspath(images)
@@ -283,7 +288,8 @@ def _batch_match_pairs(feats, pairs, cfg, seed, memo, verbose=False):
     if not edges:
         return memo
     if cfg.matching.matcher != "mnn":
-        raise NotImplementedError(f"matcher {cfg.matching.matcher!r} is not ported yet")
+        raise NotImplementedError(f"matcher {cfg.matching.matcher!r} is not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
     B = max(int(cfg.matching.pair_batch), 1)
     t0 = time.time()
     for s in range(0, len(edges), B):
@@ -614,11 +620,10 @@ def run_reconstruction(
     back to one sequential round), then — with ``adj`` — the re-matching
     rescue, and the final BA and gates. ``seed`` seeds the rescue's gate
     draws; the engine's PnP draws come from its own generator (seed 0, as
-    tpu3d's engine key)."""
+    tpu3d's engine key). With ``cfg.sfm.edge_consistency_gate``, cameras
+    that disagree with their own edges are dropped after the rescue, and a
+    second rescue (seed + 1, 3 rounds) retries them."""
     dev = resolve_device(device)
-    if cfg.sfm.edge_consistency_gate:
-        raise NotImplementedError("SfMConfig.edge_consistency_gate is not ported yet "
-                                  "(ROADMAP Queue 1 item 6c); it is off by default")
     reg_dev, ba_dev = _engine_devices(cfg, dev)
     engine = IncrementalSfM(n_images=len(feats.names), config=cfg.sfm, device=reg_dev,
                             ba_device=ba_dev)
@@ -660,10 +665,16 @@ def run_reconstruction(
     if adj:
         registrations = list(registrations) + _rescue_pass(engine, feats, ts, adj, cfg,
                                                            verbose, seed, dev)
+    gate = {}
+    if cfg.sfm.edge_consistency_gate:
+        gate["edge_gate_dropped"] = _edge_consistency_gate(engine, registrations, verbose)
+        if gate["edge_gate_dropped"] and adj:
+            _rescue_pass(engine, feats, ts, adj, cfg, verbose, seed + 1, dev, rounds=3,
+                         deregister_round=99)
     rec = engine.finalize(feats.names, registrations=registrations, verbose=verbose)
     global LAST_SFM_TIMERS
     LAST_SFM_TIMERS = {**{k: round(v, 2) for k, v in engine.timers.items()},
-                       "calls": dict(engine.counters), "edge_cap": engine._edge_cap}
+                       "calls": dict(engine.counters), "edge_cap": engine._edge_cap, **gate}
     if verbose:
         print("[sfm] phase seconds: "
               + json.dumps({k: round(v, 1) for k, v in engine.timers.items()})
@@ -707,6 +718,63 @@ def _symmetrize_weak_registrations(registrations, feats, verbose: bool, weak_tot
             print(f"[sfm] img {j}: +{added} reverse edges (own anchors {own} matches)",
                   flush=True)
     return out
+
+
+def _edge_consistency_gate(engine, registrations, verbose: bool, rot_thr_deg: float = 12.0,
+                           dir_thr_deg: float = 35.0, min_edges: int = 2) -> int:
+    """Deregister cameras whose pose disagrees with the majority of their
+    own measured edges: per edge (i, j), the geodesic angle between
+    R_j R_iᵀ and the E-gate's rel_R, and the angle between the baseline
+    C_j − C_i and −R_jᵀ rel_t; a camera with at least ``min_edges`` edges
+    goes when either median exceeds its threshold. A drop ends in a global
+    BA. Returns the number dropped."""
+    rot_errs: Dict[int, List[float]] = {}
+    dir_errs: Dict[int, List[float]] = {}
+    RC: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+
+    def pose(i):
+        if i not in RC:
+            R = so3_exp_np(engine.cams[i, :3])
+            RC[i] = (R, -R.T @ engine.cams[i, 3:6])
+        return RC[i]
+
+    for reg in registrations:
+        j = reg.img
+        if not engine.has_cam[j]:
+            continue
+        for e in reg.edges:
+            i = e.ref_img
+            if e.rel_R is None or not engine.has_cam[i]:
+                continue
+            Ri, Ci = pose(i)
+            Rj, Cj = pose(j)
+            dR = (Rj @ Ri.T) @ np.asarray(e.rel_R).T
+            ang = np.degrees(np.linalg.norm(so3_log_np(dR)))
+            b = Cj - Ci
+            nb = np.linalg.norm(b)
+            d = -Rj.T @ np.asarray(e.rel_t)
+            nd = np.linalg.norm(d)
+            dang = (np.degrees(np.arccos(np.clip(b @ d / nb / nd, -1, 1)))
+                    if nb > 1e-9 and nd > 1e-9 else 0.0)
+            for img in (i, j):
+                rot_errs.setdefault(img, []).append(ang)
+                dir_errs.setdefault(img, []).append(dang)
+    dropped = 0
+    for img in np.flatnonzero(engine.has_cam):
+        re_ = rot_errs.get(int(img), [])
+        if len(re_) < min_edges:
+            continue
+        if (float(np.median(re_)) > rot_thr_deg
+                or float(np.median(dir_errs[int(img)])) > dir_thr_deg):
+            engine.has_cam[img] = False
+            engine.num_registered -= 1
+            engine.obs_valid[int(img) * engine._K:(int(img) + 1) * engine._K] = 0
+            dropped += 1
+    if verbose and dropped:
+        print(f"[sfm] edge consistency gate dropped {dropped} cameras", flush=True)
+    if dropped:
+        engine.global_ba()
+    return dropped
 
 
 def _rescue_pass(engine, feats, ts, adj, cfg, verbose: bool, seed: int = 3, device="cuda",
@@ -766,6 +834,102 @@ def _rescue_pass(engine, feats, ts, adj, cfg, verbose: bool, seed: int = 3, devi
     return rescued
 
 
+def run_global_reconstruction(
+    feats: ExtractedFeatures,
+    registrations: List[ImageRegistration],
+    ts: TrackStore,
+    cfg: PipelineConfig,
+    verbose: bool = True,
+    adj: Optional[Dict[int, List[int]]] = None,
+    seed: int = 3,
+    device="cuda",
+) -> Reconstruction:
+    """Global mode: every camera of the pose graph's largest component is
+    initialised at once by rotation and translation averaging over the
+    edges' relative poses (sfm/posegraph.py), then every edge between two
+    such cameras is triangulated behind a loose gate (25 thresholds) and
+    three global BAs refine the whole; cameras outside the component are
+    then PnP-registered against it in up to four rounds, one more global
+    BA follows, and with ``adj`` the re-matching rescue. ``finalize`` gets
+    no registrations, so --register-all places nothing here (as in
+    tpu3d)."""
+    dev = resolve_device(device)
+    n = len(feats.names)
+    edges, rel_R, rel_t = [], [], []
+    for reg in registrations:
+        for e in reg.edges:
+            e.track = ts.resolve(e.track)
+            if e.rel_R is not None:
+                edges.append((e.ref_img, reg.img))
+                rel_R.append(np.asarray(e.rel_R, np.float64))
+                rel_t.append(np.asarray(e.rel_t, np.float64))
+    t_pg = time.time()
+    cams, has_cam, mask = pose_graph_init(n, edges, rel_R, rel_t)
+    t_pg = time.time() - t_pg
+    if verbose:
+        print(f"[sfm-global] pose graph: {int(mask.sum())}/{n} cameras in the largest "
+              f"component over {len(edges)} edges", flush=True)
+    reg_dev, ba_dev = _engine_devices(cfg, dev)
+    engine = IncrementalSfM(n_images=n, config=cfg.sfm, device=reg_dev, ba_device=ba_dev)
+    engine.cams[:] = cams
+    engine.has_cam[:] = has_cam
+    engine.num_registered = int(has_cam.sum())
+
+    # Joint triangulation of every edge between two initialised cameras,
+    # in one batched step; the commits stay in edge order, since an edge
+    # only creates the points no earlier edge created. The gate is very
+    # loose (25 thresholds, ~50 px): pose-graph poses are coarse, and
+    # Huber BA with residual pruning cleans up after.
+    tri = [(reg.img, e) for reg in registrations for e in reg.edges
+           if engine.has_cam[e.ref_img] and engine.has_cam[reg.img]]
+    n_new_total = 0
+    if tri:
+        f = engine.focal
+        N = min(engine._edge_cap, max(len(e.uv_ref) for _, e in tri))
+        t0 = time.time()
+        with f32_scope(), torch.no_grad():
+            X, good = triangulate_and_gate(
+                torch.from_numpy(np.stack([engine.cams[e.ref_img] for _, e in tri])).to(reg_dev),
+                torch.from_numpy(np.stack([engine.cams[j] for j, _ in tri])).to(reg_dev),
+                torch.from_numpy(_stack_padded([e.uv_ref.astype(np.float32) / f
+                                                for _, e in tri], N)).to(reg_dev),
+                torch.from_numpy(_stack_padded([e.uv_new.astype(np.float32) / f
+                                                for _, e in tri], N)).to(reg_dev),
+                f, 25.0 * cfg.sfm.ransac.threshold_px)
+            X, good = X.cpu().numpy(), good.cpu().numpy()
+        engine.timers["triangulate"] += time.time() - t0
+        for k, (j, e) in enumerate(tri):
+            n_new_total += engine._commit_tri_edge(j, e, X[k], good[k])[1]
+    if verbose:
+        print(f"[sfm-global] triangulated {n_new_total} points", flush=True)
+    for _ in range(3):
+        engine.global_ba()
+
+    # Recall: PnP-register what the backbone missed, against the refined
+    # structure, with the edges the matching stage already has.
+    pending = [r for r in registrations if not engine.has_cam[r.img]]
+    for _ in range(4):
+        failed = []
+        for reg in pending:
+            info = engine.register_image(reg)
+            if verbose:
+                print(f"[sfm-global] {info}", flush=True)
+            if info.get("status") != "registered":
+                failed.append(reg)
+        if not failed or len(failed) == len(pending):
+            break
+        pending = failed
+    engine.global_ba()
+    if adj:
+        _rescue_pass(engine, feats, ts, adj, cfg, verbose, seed, dev)
+    rec = engine.finalize(feats.names)
+    global LAST_SFM_TIMERS
+    LAST_SFM_TIMERS = {**{k: round(v, 2) for k, v in engine.timers.items()},
+                       "calls": dict(engine.counters), "edge_cap": engine._edge_cap,
+                       "pose_graph": round(t_pg, 2), "pose_graph_component": int(mask.sum())}
+    return rec
+
+
 def reconstruct(
     images: ImageSource,
     cfg: Optional[PipelineConfig] = None,
@@ -777,11 +941,11 @@ def reconstruct(
 ) -> Tuple[Reconstruction, Dict[str, float]]:
     """The full pipeline: extract → retrieve → match → reconstruct on
     ``device``. ``images`` is a directory of image files or the decoded
-    ``(gray_u8, rgb_u8)`` arrays. Returns (reconstruction, stage seconds);
-    each stage's time ends in a synchronize."""
-    if mode != "incremental":
-        raise NotImplementedError(f"reconstruct mode {mode!r} is not ported yet (ROADMAP "
-                                  "Queue 1 item 8: global mode)")
+    ``(gray_u8, rgb_u8)`` arrays; ``mode`` "incremental" or "global". Returns
+    (reconstruction, stage seconds); each stage's time ends in a
+    synchronize."""
+    if mode not in ("incremental", "global"):
+        raise ValueError(f"reconstruct mode {mode!r}: incremental or global")
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
 
@@ -805,7 +969,8 @@ def reconstruct(
     sync()
     timings["match"] = time.time() - t0
     t0 = time.time()
-    rec = run_reconstruction(feats, regs, ts, cfg, verbose=verbose, adj=adj, device=dev)
+    run = run_global_reconstruction if mode == "global" else run_reconstruction
+    rec = run(feats, regs, ts, cfg, verbose=verbose, adj=adj, device=dev)
     sync()
     timings["reconstruct"] = time.time() - t0
     timings["total"] = sum(timings.values())

@@ -21,12 +21,19 @@ class Reconstruction:
     track_ids: np.ndarray           # (P,) global track id per point
     mean_reproj_px: float
     num_obs: int
-    # Images placed by the --register-all low-confidence pass (not ported:
-    # always empty here).
+    # Images placed by the --register-all low-confidence pass: in the pose
+    # set, without observations.
     low_confidence: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0, np.int64))
     # Mean reprojection error (px) per registered image.
     per_cam_reproj_px: Dict[int, float] = dataclasses.field(default_factory=dict)
+    # The final BA's observations: rows of ``cams`` and ``points`` and the
+    # centred pixel coordinates (the port's addition; tpu3d keeps only the
+    # count, num_obs).
+    obs_cam: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.int64))
+    obs_point: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.int64))
+    obs_uv_px: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0, 2), np.float32))
 
     def extrinsics(self) -> np.ndarray:
         """(M, 3, 4) [R|t] matrices."""
