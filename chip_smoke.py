@@ -6,6 +6,8 @@
     python3 chip_smoke.py --dense     # phases 1-2 and 5-8 only
     python3 chip_smoke.py --full      # phases 1-2 and 9 only
     python3 chip_smoke.py --sfm       # phases 1-2 and 10 only
+    python3 chip_smoke.py --sdf       # phases 1-2 and 11 only
+    python3 chip_smoke.py --learned   # phases 1-2 and 12 only
 
 Phases, one line each, any failure exits non-zero:
 
@@ -84,6 +86,26 @@ Phases, one line each, any failure exits non-zero:
                edge-consistency gate: dropped and low-confidence cameras,
                finite poses; (d) refine_focal from 1.25x the scene's focal on
                (a)'s one-process observations: the focal within 1%.
+ 11. sdf     — densify --model sdf on the card from a fresh directory holding
+               only the scene's reconstruction, at tpu3d's default width (256^3
+               x 28, 192 samples, batch 2048, Adam) with ray stride 8 (100
+               steps), scored with the SDF's training band: steps, rays/s,
+               first and last logged loss, PSNR against tpu3d's on the CPU,
+               both kernels' launches against the step counts, peak memory;
+               one profiled SDF step; cli mesh on the saved mesh_grid
+               (vertices, faces, iso level, seconds); voxel_traversal on the
+               card against the CPU (8,192 rays x 256 steps, indices equal).
+ 12. learned — the learned frontends and matcher with seeded random weights
+               written as tpu3d-layout .npz and loaded through the config: (a)
+               DiskUNet on a 4-view 976x656 batch and the 9-layer LightGlue on
+               one K=2048 pair, card against CPU, TF32 off; (b) run_extraction
+               with DISK over the 24 views (seconds, keypoints, peak memory,
+               device ms per batch); (c) run_retrieval + run_matching with
+               LightGlue at pair_batch 32 (pairs, raw matches, ms per block,
+               one profiled block, peak memory); (d) reconstruct with DISK and
+               the mutual-NN matcher (top2 at D = 128 launched; registered
+               cameras recorded); (e) SuperPoint and one mutual-NN block: top2
+               at D = 256 against its plain version, with its times and bound.
 
 The kernel rows (phase 3): patch_sample_kernel, top2_kernel,
 trilinear_kernel, trilinear_grad_kernel, orient_desc_kernel. The line before
@@ -207,6 +229,37 @@ MAX_GLOBAL_REPROJ_PX = 0.173545
 # search (24 golden-section steps, BA max_iters 12, cg_iters 24): within 1%.
 FOCAL_START = 1.25
 MAX_FOCAL_ERR = 0.01
+# The sdf phase: tpu3d's densify --model sdf at its default width (256^3 x
+# 28, 192 samples, batch 2048, Adam 1e-2, one epoch) on the train phase's
+# rays (ray stride 8, 100 steps), scored with the SDF's training band (near
+# 1e-3, far 1e3, box-clipped). That band ends on the box's exit face, so
+# every ray's last sample (whose segment is 1e10) lies on the face, and
+# whether it counts as inside depends on how o + t d rounds: XLA fuses some
+# of those products into FMAs, eager torch none, so tpu3d's scorer and the
+# port's differ on the same grid. Mean held-out PSNR (views 4, 12, 20) of
+# tpu3d's train_sdf (seed 0, what its densify uses) on the CPU for the same
+# artifacts and flags, scored by tpu3d's evaluate_views (recorded) and by the
+# port's on the same grid (the limit), as `JAX_PLATFORMS=cpu PYTHONPATH=.
+# python tests/test_torch_sdf.py` prints. tpu3d's scorer over seeds 0, 1,
+# 2: 11.908293 / 11.880223 / 11.892850 dB; the port's scorer on the same
+# grids 13.065261 / 13.016655 / 13.026674 dB, a spread of 0.048605 dB. The
+# port's random streams differ from tpu3d's, so it must come within twice
+# that of seed 0's.
+TPU3D_CPU_SDF_PSNR = 11.908293336689672
+TPU3D_SDF_PORT_SCORED_PSNR = 13.065260680802488
+MAX_SDF_PSNR_DIFF_DB = 0.0973
+# voxel_traversal on the card against the CPU: the first 8,192 training rays
+# through the 256^3 grid, 256 steps each.
+TRAVERSAL_RAYS, TRAVERSAL_STEPS = 8192, 256
+# The learned phase: seeded random weights (the released checkpoints are not
+# in the repository), 4 views a DISK batch. DiskUNet's map on the card within
+# 1e-4 of its largest value of the CPU's, at least 99% of the valid keypoints
+# in both sets (a score within rounding of a window neighbour's can flip an
+# NMS decision), LightGlue's scores within 1e-4 x max(1, max |score|): f32
+# products summed in another order over 9 layers (the CPU tests see 1.8e-5 of
+# the value between tpu3d and the port).
+LEARNED_SEED, LEARNED_BATCH = 0, 4
+DISK_MAP_REL_TOL, DISK_KP_AGREE, LG_SCORE_REL_TOL = 1e-4, 0.99, 1e-4
 # The staged commands' artifacts and the keys each must hold (tpu3d's).
 STAGED_KEYS = {
     "features.npz": {"keypoints", "keypoints_px", "descriptors", "valid", "colors_bgr",
@@ -1397,16 +1450,16 @@ def _run_train(torch, dev, scene, root) -> dict:
 
 
 def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=None,
-                        base=None) -> None:
+                        base=None, sdf=False) -> None:
     """Training steps at the train phase's shapes on a fresh 256^3 state
-    (or a ``res`` grid over ``box``, trained against a cascade ``base``):
-    10 timed with CUDA events after 3 warm-ups, then one under
-    torch.profiler, its device time split by kernel family."""
+    (or a ``res`` grid over ``box``, trained against a cascade ``base``;
+    the SDF step with ``sdf``): 10 timed with CUDA events after 3 warm-ups,
+    then one under torch.profiler, its device time split by kernel family."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu3d_torch import f32_scope
     from tpu3d_torch.dense.grid import create_grid
-    from tpu3d_torch.dense.train import init_state, train_step
+    from tpu3d_torch.dense.train import init_state, sdf_train_step, train_step
 
     s = cfg.scene_scale
     lo, hi = box or ((-s,) * 3, (s,) * 3)
@@ -1419,6 +1472,8 @@ def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=N
 
     def step(i):
         sl = slice(i % spe * B, (i % spe + 1) * B)
+        if sdf:
+            return sdf_train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen)
         return train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen, base=base)
 
     with f32_scope():
@@ -1812,6 +1867,336 @@ def _profile_slice(torch, dev, scene, cfg) -> None:
               flush=True)
 
 
+def _run_sdf(torch, dev, scene, root) -> dict:
+    """Phase 11: densify --model sdf on the card from a fresh directory
+    holding only the scene's reconstruction, at tpu3d's default width, with
+    the launch counts set to 0 just before it and read just after; then its
+    held-out evaluation with the training band (in densify), one profiled
+    SDF step, cli mesh on the saved mesh_grid, and voxel_traversal on the
+    card against the CPU."""
+    from tpu3d_torch.cli import densify, mesh
+    from tpu3d_torch.dense import voxel_traversal
+    from tpu3d_torch.dense.sdf import ray_aabb
+    from tpu3d_torch.dense.train import LAST_TRAIN_AUX
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+
+    names = [f"img_{i:03d}.png" for i in range(N_VIEWS)]
+    shutil.rmtree(root, ignore_errors=True)
+    make_reconstruction_artifacts(root, scene)
+    cfg, ds = _train_inputs(root, scene)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    out = densify(root, scene["rgb"], names, scene["focal"], model="sdf",
+                  ray_stride=TRAIN_RAY_STRIDE, no_checkpoint=True, final_grid=True,
+                  log_every=TRAIN_LOG_EVERY, device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log, steps = LAST_TRAIN_AUX["log"], LAST_TRAIN_AUX["steps"]
+    at10 = next(e for e in log if e["step"] == TRAIN_LOG_EVERY)
+    rays_s = (log[-1]["step"] - at10["step"]) * 2048 / (log[-1]["seconds"] - at10["seconds"])
+    first, last = log[0]["loss"], log[-1]["loss"]
+    mean = float(out["test_psnr"])
+    eval_launches = _eval_chunks(len(out["test_view_names"]))
+    print(f"sdf: densify --model sdf {secs:.3f} s (training, grid save and eval); {steps} "
+          f"steps, {rays_s:.0f} rays/s over steps {at10['step']}-{log[-1]['step']}; loss "
+          f"{first:.5f} (step 0) -> {last:.5f} (step {log[-1]['step']}); views "
+          f"{out['test_view_names']} PSNR {out['test_psnr_per_view']} mean {mean:.4f} dB "
+          f"(tpu3d's grid on the CPU: {TPU3D_SDF_PORT_SCORED_PSNR} by the port's scorer, limit "
+          f"{MAX_SDF_PSNR_DIFF_DB} dB; {TPU3D_CPU_SDF_PSNR} by tpu3d's); peak "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches} (expected trilinear "
+          f"{steps} + {eval_launches}, scatter {steps})", flush=True)
+    if launches["trilinear_grad_kernel"] != steps:
+        _fail(f"sdf: trilinear_grad_kernel launched {launches['trilinear_grad_kernel']} times "
+              f"in {steps} steps")
+    if launches["trilinear_kernel"] != steps + eval_launches:
+        _fail(f"sdf: trilinear_kernel launched {launches['trilinear_kernel']} times, expected "
+              f"{steps} steps + {eval_launches} eval chunks")
+    if not all(np.isfinite([first, last, *out["test_psnr_per_view"]])):
+        _fail(f"sdf: loss or PSNR not finite: {first}, {last}, {out['test_psnr_per_view']}")
+    if not last < first:
+        _fail(f"sdf: the last logged loss {last} is not below the first {first}")
+    if not abs(mean - TPU3D_SDF_PORT_SCORED_PSNR) <= MAX_SDF_PSNR_DIFF_DB:
+        _fail(f"sdf: mean PSNR {mean:.4f} dB is not within {MAX_SDF_PSNR_DIFF_DB} dB of "
+              f"tpu3d's grid's {TPU3D_SDF_PORT_SCORED_PSNR} (the port's scorer)")
+    _profile_train_step(torch, dev, cfg, ds, label="sdf step", sdf=True)
+
+    t0 = time.time()
+    m = mesh(root, out=str(Path(root) / "mesh.ply"))
+    print(f"sdf (mesh): {m['vertices']} vertices, {m['faces']} faces, iso {m['iso']}, "
+          f"{time.time() - t0:.3f} s (host numpy over the {DENSE_RES}^3 mesh_grid)", flush=True)
+    if m["vertices"] <= 0 or m["faces"] <= 0:
+        _fail(f"sdf (mesh): empty mesh {m}")
+
+    n = TRAVERSAL_RAYS
+    o, d = (torch.from_numpy(a[:n]).to(dev) for a in (ds.origins, ds.dirs))
+    lo = torch.full((3,), -cfg.scene_scale, device=dev)
+    hi = torch.full((3,), cfg.scene_scale, device=dev)
+    t_near, t_far, _ = ray_aabb(o, d, lo, hi)
+    vs = 2.0 * cfg.scene_scale / DENSE_RES
+    res = (DENSE_RES,) * 3
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = voxel_traversal(o, d, t_near, t_far, lo, vs, res, TRAVERSAL_STEPS)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    ref = voxel_traversal(*(x.cpu() for x in (o, d, t_near, t_far, lo)), vs, res,
+                          TRAVERSAL_STEPS)
+    t_cpu = time.time() - t0
+    n_diff = int((got.cpu() != ref).any(dim=-1).sum())
+    visited = int((ref[..., 0] >= 0).sum())
+    print(f"sdf (traversal): {n} rays x {TRAVERSAL_STEPS} steps on the {DENSE_RES}^3 grid; "
+          f"{visited} voxels visited; card {t_card:.3f} s, CPU {t_cpu:.3f} s; slots that "
+          f"differ {n_diff}", flush=True)
+    if n_diff or visited == 0:
+        _fail(f"sdf (traversal): {n_diff} slots differ from the CPU's, {visited} visited")
+    return launches
+
+
+def _learned_weights(torch, root: Path) -> dict:
+    """Seeded random weights for DISK, SuperPoint and LightGlue (9 layers,
+    width 256, 4 heads, input 128: DISK's descriptors), each written as a
+    tpu3d-layout .npz under ``root``."""
+    from tpu3d_torch.features.disk import DiskUNet
+    from tpu3d_torch.features.learned import save_params_npz, tree_from_state_dict
+    from tpu3d_torch.features.superpoint import SuperPointNet
+    from tpu3d_torch.matching.lightglue import LightGlue
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for k, (name, make) in enumerate((("disk", DiskUNet), ("superpoint", SuperPointNet),
+                                      ("lightglue", lambda: LightGlue(128, 256, 9, 4)))):
+        torch.manual_seed(LEARNED_SEED + k)
+        paths[name] = str(root / f"{name}.npz")
+        save_params_npz(paths[name], tree_from_state_dict(make().state_dict()))
+    return paths
+
+
+def _learned_config(scene, frontend="classical", weights="", matcher="mnn", m_weights=""):
+    base = _full_config(scene)
+    return dataclasses.replace(
+        base, frontend=dataclasses.replace(base.frontend, model=frontend, weights=weights),
+        matching=dataclasses.replace(base.matching, matcher=matcher, weights=m_weights))
+
+
+def _padded_batch(torch, dev, scene, n):
+    """The first ``n`` views as DISK reads them: RGB in [0, 1], zero-padded
+    to multiples of 16 (976 x 656), (n, Hp, Wp, 3) on ``dev``."""
+    hp, wp = -(-HEIGHT // 16) * 16, -(-WIDTH // 16) * 16
+    img = torch.zeros((n, hp, wp, 3), device=dev)
+    img[:, :HEIGHT, :WIDTH] = torch.from_numpy(scene["rgb"][:n]).to(dev).float() / 255.0
+    return img
+
+
+def _run_learned(torch, dev, scene, root: Path) -> None:
+    """Phase 12: the learned frontends and matcher with seeded random
+    weights (the released checkpoints are not in the repository), loaded
+    through the config's weights path. (a) DISK and the 9-layer LightGlue
+    on the card against the CPU; (b) run_extraction with DISK over the 24
+    views; (c) retrieval and matching with LightGlue at pair_batch 32; (d)
+    reconstruct with DISK and the mutual-NN matcher (top2 at D = 128); (e)
+    SuperPoint and one mutual-NN match block (top2 at D = 256). Each run
+    with the launch counts set to 0 just before it and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.features.disk import extract_disk
+    from tpu3d_torch.features.learned import frontend_module, load_frontend_params
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+    from tpu3d_torch.kernels import distance as dist
+    from tpu3d_torch.features.learned import load_matcher_params
+    from tpu3d_torch.matching.lightglue import lightglue_from_tpu3d
+    from tpu3d_torch.sfm import pipeline as P
+
+    w = _learned_weights(torch, root)
+    print(f"learned: weights (seeded, random) {sorted(w)}; tf32 "
+          f"cuda.matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32} outside f32_scope", flush=True)
+
+    # (a) the card against the CPU
+    disk = frontend_module("disk", load_frontend_params("disk", w["disk"]), dev)
+    x = _padded_batch(torch, dev, scene, LEARNED_BATCH)
+    with f32_scope(), torch.no_grad():
+        t0 = time.time()
+        got = disk(x.permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        t0 = time.time()
+        disk_cpu = frontend_module("disk", load_frontend_params("disk", w["disk"]), "cpu")
+        ref = disk_cpu(x.cpu().permute(0, 3, 1, 2))
+        t_cpu = time.time() - t0
+        rel = float((got.cpu() - ref).abs().max()) / float(ref.abs().max())
+        fg = extract_disk(disk, x, 2048)
+        fc = extract_disk(disk_cpu, x.cpu(), 2048)
+        del got, ref
+        agree = []
+        for b in range(LEARNED_BATCH):
+            a = {tuple(p) for p in fg.keypoints[b][fg.valid[b]].cpu().tolist()}
+            c = {tuple(p) for p in fc.keypoints[b][fc.valid[b]].tolist()}
+            agree.append(len(a & c) / max(len(a | c), 1))
+        lg = lightglue_from_tpu3d(load_matcher_params(w["lightglue"]), dev)
+        lg_cpu = lightglue_from_tpu3d(load_matcher_params(w["lightglue"]), "cpu")
+        size = torch.tensor([[float(WIDTH), float(HEIGHT)]], device=dev)
+        args = (fg.keypoints[:1], fg.descriptors[:1], size, fg.keypoints[1:2],
+                fg.descriptors[1:2], size, fg.valid[:1].float(), fg.valid[1:2].float())
+        s_card = lg(*args)
+        s_cpu = lg_cpu(*(a.cpu() for a in args))
+        lg_err = float((s_card.cpu() - s_cpu).abs().max())
+        lg_scale = float(s_cpu[s_cpu > -1e8].abs().max())     # not the masked -1e9 slots
+    del fc, disk_cpu, lg_cpu, s_card, s_cpu
+    print(f"learned (card vs CPU): DiskUNet {LEARNED_BATCH} x {x.shape[2]}x{x.shape[1]} map "
+          f"max relative error {rel:.3g} (limit {DISK_MAP_REL_TOL}); card {t_card:.3f} s "
+          f"(first call), CPU {t_cpu:.3f} s; keypoint sets (2048, valid slots) agree "
+          f"{[round(a, 5) for a in agree]} (limit {DISK_KP_AGREE}); LightGlue 9 layers one "
+          f"pair K=2048: scores max abs error {lg_err:.3g} over max |score| {lg_scale:.3g} "
+          f"(limit {LG_SCORE_REL_TOL} x max(1, max |score|))", flush=True)
+    if not rel <= DISK_MAP_REL_TOL:
+        _fail(f"learned: DiskUNet map relative error {rel:.3g} > {DISK_MAP_REL_TOL}")
+    if not min(agree) >= DISK_KP_AGREE:
+        _fail(f"learned: DISK keypoint sets agree {min(agree):.4f} < {DISK_KP_AGREE}")
+    if not lg_err <= LG_SCORE_REL_TOL * max(1.0, lg_scale):
+        _fail(f"learned: LightGlue scores differ by {lg_err:.3g} > {LG_SCORE_REL_TOL} x "
+              f"max(1, {lg_scale:.3g})")
+    del disk, lg
+    torch.cuda.empty_cache()
+
+    # (b) DISK extraction over the 24 views
+    cfg = _learned_config(scene, "disk", w["disk"], "lightglue", w["lightglue"])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    feats = P.run_extraction((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
+    kpts = feats.valid.sum(axis=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        P.run_extraction((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        prof_wall = time.time() - t0
+    per_kernel = _device_ms(prof)
+    n_batches = -(-N_VIEWS // cfg.frontend.batch_size)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"learned (DISK extract): {N_VIEWS} views {WIDTH}x{HEIGHT} padded to "
+          f"{x.shape[2]}x{x.shape[1]}, batch {cfg.frontend.batch_size}: {secs:.3f} s "
+          f"(weights load and first calls included); keypoints/image min {kpts.min()} median "
+          f"{int(np.median(kpts))} of {cfg.frontend.max_keypoints}; descriptors "
+          f"{tuple(feats.descriptors_dev.shape)}; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{launches}; profiled: wall {prof_wall:.3f} s, device {busy:.2f} ms, "
+          f"{busy / n_batches:.2f} device ms per batch of {cfg.frontend.batch_size}; top "
+          "kernels: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top), flush=True)
+    if kpts.min() <= 0:
+        _fail("learned (DISK extract): an image without keypoints")
+    del x
+
+    # (c) retrieval and matching with LightGlue
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    timers, memo = {}, {}
+    t0 = time.time()
+    adj = P.run_retrieval(feats, cfg, device=dev)
+    t_ret = time.time() - t0
+    regs, ts = P.run_matching(feats, adj, cfg, verbose=False, memo=memo, device=dev,
+                              timers=timers)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    K = feats.keypoints.shape[1]
+    raw = [int((row[:K * 3].reshape(K, 3)[:, 1] > 0).sum()) for row in memo.values()]
+    blocks = -(-len(memo) // cfg.matching.pair_batch)
+    edges = sorted(memo)[:cfg.matching.pair_batch]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        P._match_and_gate_block(feats, edges, 0, cfg)
+        torch.cuda.synchronize()
+        blk_wall = time.time() - t1
+    per_kernel = _device_ms(prof)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"learned (LightGlue match): retrieval {t_ret:.3f} s; {len(memo)} pairs in {blocks} "
+          f"blocks of {cfg.matching.pair_batch}; raw matches per pair median "
+          f"{int(np.median(raw))} min {min(raw)} max {max(raw)}; match + retrieval "
+          f"{secs:.3f} s, gate blocks {timers['gate_blocks']:.3f} s "
+          f"({timers['gate_blocks'] * 1e3 / max(blocks, 1):.1f} ms per block); images "
+          f"accepted {len(regs)}/{N_VIEWS}; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{dict(LAUNCHES)}; one block profiled: wall {blk_wall * 1e3:.1f} ms, device "
+          f"{sum(per_kernel.values()):.2f} ms; top kernels: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top), flush=True)
+    if not memo or not all(np.isfinite(r).all() for r in memo.values()):
+        _fail("learned (LightGlue match): no pairs, or a result not finite")
+    del feats, memo
+    torch.cuda.empty_cache()
+
+    # (d) DISK + the mutual-NN matcher: reconstruct
+    cfg = _learned_config(scene, "disk", w["disk"])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    rec, stage = P.reconstruct((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(LAUNCHES)
+    print(f"learned (DISK + MNN reconstruct): {secs:.3f} s; stage s "
+          f"{ {k: round(v, 3) for k, v in stage.items()} }; registered "
+          f"{len(rec.registered)}/{N_VIEWS}, points {len(rec.points)}, mean reprojection "
+          f"{rec.mean_reproj_px:.4f} px (random weights: recorded, no limit); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    if launches["top2_kernel"] <= 0:
+        _fail("learned (DISK + MNN): top2_kernel was not launched")
+
+    # (e) SuperPoint + the mutual-NN matcher: one match block at D = 256
+    cfg = _learned_config(scene, "superpoint", w["superpoint"])
+    feats = P.run_extraction((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+    pairs = sorted(((i, j) for i in range(N_VIEWS) for j in range(i + 1, N_VIEWS)),
+                   key=lambda p: (p[1] - p[0], p[0]))[:cfg.matching.pair_batch]
+    torch.cuda.synchronize()
+    reset_launches()
+    P._batch_match_pairs(feats, pairs, cfg, 0, {})
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    d, v = feats.descriptors_dev, feats.valid_dev
+    ii = torch.as_tensor([p[0] for p in pairs], device=dev)
+    jj = torch.as_tensor([p[1] for p in pairs], device=dev)
+    q, k, vq, vk = d[ii], d[jj], v[ii], v[jj]
+    best, second, arg, col = dist.mutual_top2(q, k, vq, vk)
+    pb, ps_, pa, pc = dist.mutual_top2_plain(q, k, vq, vk)
+    cb, cs, _ = dist.descriptor_top2_plain(k, q, vk, vq)
+    torch.cuda.synchronize()
+    err = max(float((best - pb).abs().max()), float((second - ps_).abs().max()))
+    clear = ((pb - ps_) > 1e-5) | (vq == 0)
+    cclear = ((cb - cs) > 1e-5) | (vk == 0)
+    n_bad = int(((arg != pa) & clear).sum()) + int(((col != pc) & cclear).sum())
+    row = dict(_times(torch, lambda: dist.mutual_top2(q, k, vq, vk), 20),
+               **_times(torch, lambda: dist.mutual_top2_plain(q, k, vq, vk), 5, "plain_"))
+    B, Kq, D = q.shape
+    flops = 2.0 * B * Kq * k.shape[1] * D
+    bound_ms = flops / H100_FP32_FLOPS * 1e3
+    ms = row["ms"] or row["wall_ms"]
+    print(f"learned (SuperPoint + MNN): descriptors {tuple(d.shape)}; one block of {B} pairs "
+          f"launched top2_kernel {launches['top2_kernel']} time(s); kernel top2_kernel B={B} "
+          f"K={Kq} D={D}: max_abs_err={err:.3g} argmax differences where the gap > 1e-5 "
+          f"{n_bad}; bound_ms={bound_ms:.4f} ({bound_ms / ms:.0%} of the bound); "
+          + _fmt_times(row), flush=True)
+    if launches["top2_kernel"] != 1:
+        _fail(f"learned (SuperPoint + MNN): top2_kernel launched {launches['top2_kernel']} "
+              "times for one block of pairs")
+    if not err <= 1e-5 or n_bad:
+        _fail(f"learned (SuperPoint + MNN): top2 at D={D} max |err| {err:.3g}, {n_bad} argmax "
+              "differences")
+
+
 def main(argv=()) -> int:
     import argparse
 
@@ -1827,6 +2212,12 @@ def main(argv=()) -> int:
     mode.add_argument("--sfm", action="store_true",
                       help="phases 1-2 and 10 only: build, then the SfM entry points (staged "
                       "commands, global mode, the options, refine_focal; no kernel table)")
+    mode.add_argument("--sdf", action="store_true",
+                      help="phases 1-2 and 11 only: build, then densify --model sdf, its "
+                      "profiled step, mesh and the traversal (no kernel table)")
+    mode.add_argument("--learned", action="store_true",
+                      help="phases 1-2 and 12 only: build, then the learned frontends and "
+                      "matcher with seeded random weights (no kernel table)")
     mode.add_argument("--dense", action="store_true",
                       help="phases 1-2 and 5-8 only: build, then the dense, train, recipe and "
                       "options phases (no kernel table)")
@@ -1867,6 +2258,17 @@ def main(argv=()) -> int:
         return 0
     if opts.sfm:
         _run_sfm(torch, dev, scene, build / "chip_smoke_sfm")
+        print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+        return 0
+    if opts.sdf or opts.learned:
+        root = build / ("chip_smoke_sdf" if opts.sdf else "chip_smoke_learned")
+        try:
+            if opts.sdf:
+                _run_sdf(torch, dev, scene, str(root))
+            else:
+                _run_learned(torch, dev, scene, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
         print(smi[0] if smi else "nvidia-smi: no output", flush=True)
         return 0
     roots = {k: build / f"chip_smoke_{k}" for k in ("dense", "train", "recipe", "options")}
@@ -1927,8 +2329,11 @@ def main(argv=()) -> int:
             launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
             _profile_reconstruct(torch, dev, scene)
             _run_sfm(torch, dev, scene, build / "chip_smoke_sfm")
+            _run_sdf(torch, dev, scene, str(build / "chip_smoke_sdf"))
+            _run_learned(torch, dev, scene, build / "chip_smoke_learned")
     finally:
-        for root in [*roots.values(), build / "chip_smoke_sfm"]:
+        for root in [*roots.values(), *(build / f"chip_smoke_{k}" for k in ("sfm", "sdf",
+                                                                             "learned"))]:
             shutil.rmtree(root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]

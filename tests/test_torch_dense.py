@@ -462,8 +462,8 @@ def test_render_artifacts_matches_tpu3d(dense_dir, tmp_path):
 def test_cli_commands_on_the_cpu(dense_dir, tmp_path, capsys):
     """The argparse commands: densify --eval-only prints dense_result;
     render writes PNGs; densify without --eval-only trains on a fresh
-    reconstruction and writes tpu3d's dense artifacts, and refuses a
-    training option that is not ported (--model sdf)."""
+    reconstruction and writes tpu3d's dense artifacts, with the plenoxel
+    model and (since the SDF model was ported) with --model sdf."""
     d, scene = dense_dir
     images = tmp_path / "images"
     images.mkdir()
@@ -482,8 +482,13 @@ def test_cli_commands_on_the_cpu(dense_dir, tmp_path, capsys):
     train = tmp_path / "train"
     chip_smoke.make_reconstruction_artifacts(str(train), scene)
     common[3] = str(train)
-    with pytest.raises(NotImplementedError, match="sdf.*7d"):
-        main(["densify", *common, "--model", "sdf"])
+    sdf = tmp_path / "sdf"
+    chip_smoke.make_reconstruction_artifacts(str(sdf), scene)
+    main(["densify", *common[:3], str(sdf), *common[4:], "--model", "sdf", "--grid-resolution",
+          "16", "--ray-stride", "8", "--num-samples", "16", "--quiet"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["recipe"]["model"] == "sdf" and np.isfinite(out["test_psnr"])
+    assert ArtifactStore(str(sdf)).load_json("dense_meta")["model"] == "sdf"
     main(["densify", *common, "--grid-resolution", "16", "--ray-stride", "8",
           "--num-samples", "16", "--quiet"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

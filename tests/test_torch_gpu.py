@@ -130,8 +130,9 @@ def test_top2_kernel_ties_and_masks(cuda):
     np.testing.assert_array_equal(arg[0].cpu().numpy(), [1, 0, 0])
 
 
-@pytest.mark.parametrize("K0, K1, D", [(300, 517, 128), (300, 517, 130), (129, 64, 520)],
-                         ids=["ragged", "D130-scalar-copies", "D520"])
+@pytest.mark.parametrize("K0, K1, D", [(300, 517, 128), (300, 517, 130), (129, 64, 520),
+                                       (600, 517, 256)],
+                         ids=["ragged", "D130-scalar-copies", "D520", "D256-superpoint"])
 def test_mutual_top2_kernel_matches_plain(cuda, gen, K0, K1, D):
     """One launch for both directions, ragged tiles (K not a multiple of
     128) and masks, on the 16-byte copy path (D = 128), the 4-byte one
@@ -280,10 +281,11 @@ def test_trilinear_grad_kernel_matches_plain(cuda, gen, C):
         assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
 
 
-def _step_on_card_and_cpu(cuda, gen, cfg, grid, lo, hi, occ=None, base=None):
-    """One training step on the card and the same step on the CPU (plain
-    versions) with the same injected random numbers: (states, losses,
-    trilinear and scatter launches of the card's step)."""
+def _step_on_card_and_cpu(cuda, gen, cfg, grid, lo, hi, occ=None, base=None, sdf=False):
+    """One training step (the SDF step with ``sdf``) on the card and the
+    same step on the CPU (plain versions) with the same injected random
+    numbers: (states, losses, trilinear and scatter launches of the card's
+    step)."""
     from tpu3d_torch.dense import train as TT
     from tpu3d_torch.dense.grid import VoxelGrid
 
@@ -293,17 +295,19 @@ def _step_on_card_and_cpu(cuda, gen, cfg, grid, lo, hi, occ=None, base=None):
                                       + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
     rgb = torch.rand((256, 3), generator=gen, device=cuda)
     cid = torch.randint(0, 4, (256,), generator=gen, device=cuda)
-    noise = TT.draw_step_noise(cfg, grid.shape, 256, gen, cuda)
+    noise = TT.draw_step_noise(TT.sdf_noise_config(cfg) if sdf else cfg, grid.shape, 256, gen,
+                               cuda)
     states, losses, launched = [], [], None
     for dev in (cuda, torch.device("cpu")):
         before = (LAUNCHES["trilinear_kernel"], LAUNCHES["trilinear_grad_kernel"])
         st = TT.init_state(cfg, VoxelGrid(grid.clone().to(dev), torch.tensor(lo, device=dev),
                                           torch.tensor(hi, device=dev)), 5, 4)
-        losses.append(float(TT.train_step(
+        kw = {} if sdf else dict(occ=None if occ is None else occ.to(dev),
+                                 base=None if base is None else VoxelGrid(*(x.to(dev)
+                                                                            for x in base)))
+        losses.append(float((TT.sdf_train_step if sdf else TT.train_step)(
             st, cfg, o.to(dev), d.to(dev), rgb.to(dev), cid.to(dev),
-            noise=TT.StepNoise(*(None if x is None else x.to(dev) for x in noise)),
-            occ=None if occ is None else occ.to(dev),
-            base=None if base is None else VoxelGrid(*(x.to(dev) for x in base)))))
+            noise=TT.StepNoise(*(None if x is None else x.to(dev) for x in noise)), **kw)))
         states.append(st)
         launched = launched or (LAUNCHES["trilinear_kernel"] - before[0],
                                 LAUNCHES["trilinear_grad_kernel"] - before[1])
@@ -355,6 +359,75 @@ def test_train_step_on_the_card(cuda, gen, hierarchical):
                                                      [1.5] * 3)
     assert launched == (2 if hierarchical else 1, 1)
     _assert_steps_agree(states, losses, grid)
+
+
+def test_sdf_step_on_the_card(cuda, gen):
+    """One SDF step (box-clipped band, valid-ray MSE) with every prior and
+    latent on, through both kernels on the card, against the same step on
+    the CPU with the same injected random numbers, to the plenoxel step's
+    limits (test_train_step_on_the_card). A third of the rays miss the box."""
+    from tpu3d_torch.config import DenseConfig
+
+    cfg = DenseConfig(grid_resolution=16, batch_size=256, num_samples=16, tv_sigma=0.3,
+                      tv_sh=0.05, sparsity_sigma=0.02, exposure=True, sh_background=True)
+    grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
+    grid[..., 0] = torch.randn((16, 16, 16), generator=gen, device=cuda) * 2.0
+    states, losses, launched = _step_on_card_and_cpu(cuda, gen, cfg, grid, [-0.6] * 3,
+                                                     [0.6] * 3, sdf=True)
+    assert launched == (1, 1)
+    _assert_steps_agree(states, losses, grid)
+
+
+def _learned_inputs(cuda, gen):
+    from tpu3d_torch.features.disk import DiskUNet
+    from tpu3d_torch.matching.lightglue import LightGlue
+
+    torch.manual_seed(0)
+    disk, lg = DiskUNet().eval(), LightGlue(input_dim=128, n_layers=2).eval()
+    x = torch.rand((2, 3, 64, 96), generator=gen, device=cuda)
+    return disk, lg, x
+
+
+def test_disk_on_the_card(cuda, gen):
+    """DiskUNet on the card in full f32 against the CPU from the same
+    weights: the 129-channel map within 1e-4 x its size, and detection: at
+    least 99% of the card's valid keypoints are the CPU's (a score within
+    rounding of a window neighbour's can flip an NMS decision)."""
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.features.disk import extract_disk
+
+    disk, _, x = _learned_inputs(cuda, gen)
+    with f32_scope(), torch.no_grad():
+        ref = disk(x.cpu())
+        got = disk.to(cuda)(x).cpu()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+        f_gpu = extract_disk(disk, x.permute(0, 2, 3, 1), 256)
+        f_cpu = extract_disk(disk.cpu(), x.cpu().permute(0, 2, 3, 1), 256)
+    for b in range(2):
+        a = {tuple(p) for p in f_gpu.keypoints[b][f_gpu.valid[b]].cpu().tolist()}
+        c = {tuple(p) for p in f_cpu.keypoints[b][f_cpu.valid[b]].tolist()}
+        assert len(a & c) >= 0.99 * len(a)
+
+
+def test_lightglue_on_the_card(cuda, gen):
+    """LightGlue (2 layers) on the card in full f32 against the CPU with
+    padding masks: log-assignment scores within 1e-4 + 2e-5 x |score|."""
+    from tpu3d_torch import f32_scope
+
+    _, lg, _ = _learned_inputs(cuda, gen)
+    M, N = 64, 80
+    kp0 = torch.rand((1, M, 2), generator=gen, device=cuda) * 480
+    kp1 = torch.rand((1, N, 2), generator=gen, device=cuda) * 480
+    d0 = torch.randn((1, M, 128), generator=gen, device=cuda)
+    d1 = torch.randn((1, N, 128), generator=gen, device=cuda)
+    size = torch.tensor([[640.0, 480.0]], device=cuda)
+    v0 = (torch.arange(M, device=cuda) < M - 10).float()[None]
+    v1 = (torch.arange(N, device=cuda) < N - 16).float()[None]
+    args = (kp0, d0, size, kp1, d1, size, v0, v1)
+    with f32_scope(), torch.no_grad():
+        ref = lg(*(a.cpu() for a in args))
+        got = lg.to(cuda)(*args).cpu()
+    assert bool(((got - ref).abs() <= 1e-4 + 2e-5 * ref.abs()).all())
 
 
 @pytest.mark.parametrize("option", ["cascade", "occupancy"])

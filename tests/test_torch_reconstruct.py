@@ -534,20 +534,22 @@ def test_reconstruct_global_end_to_end(sfm_scene, tpu3d_sfm):
     assert _aligned_center_error(rec.cams, _scene_cams(sfm_scene, rec.registered)) < 1e-2
 
 
-def test_unported_options_raise(sfm_scene, tmp_path):
+def test_unported_options_raise(sfm_scene, tmp_path, capsys):
     """What the port still refuses, each naming its ROADMAP item: densify
-    --model sdf (7d) and --mesh (10), the learned frontend and matcher (9),
-    approximate top-k retrieval (12)."""
+    --mesh (10) and approximate top-k retrieval (12). The options it once
+    refused now run: full --frontend disk, extract --frontend superpoint
+    and match --matcher lightglue (item 9; seeded random weights from
+    tpu3d's inits), and densify --model sdf (item 7d) on full's
+    reconstruction."""
+    from tpu3d.features.disk import DiskUNet
+    from tpu3d.features.learned import save_params_npz
+    from tpu3d.features.superpoint import SuperPointNet
+    from tpu3d.matching.lightglue import LightGlue
     from tpu3d_torch import cli
 
     common = ["--images", sfm_scene["dir"], "--artifacts", str(tmp_path), "--device", "cpu"]
-    for cmd, flags, item in (("densify", ["--model", "sdf"], "7d"),
-                             ("densify", ["--mesh", "auto"], "item 10"),
-                             ("full", ["--frontend", "disk"], "item 9"),
-                             ("extract", ["--frontend", "superpoint"], "item 9"),
-                             ("match", ["--matcher", "lightglue"], "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main([cmd, *common, *flags])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.main(["densify", *common, "--mesh", "auto"])
     cfg = sfm_scene["cfg"]
     approx = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
                                                                    approx_topk_recall=0.95))
@@ -555,6 +557,36 @@ def test_unported_options_raise(sfm_scene, tmp_path):
     with pytest.raises(NotImplementedError, match="item 12"):
         TP.run_extraction((gray, np.zeros((2, 64, 64, 3), np.uint8)), approx, verbose=False,
                           device="cpu")
+
+    def weights(name, module, *shapes):
+        key = jax.random.PRNGKey(0)
+        params = module.init(key, *(jnp.zeros(s) if isinstance(s, tuple) else s for s in shapes))
+        path = str(tmp_path / f"{name}.npz")
+        save_params_npz(path, jax.tree_util.tree_map(np.asarray, params))
+        return path
+
+    disk = weights("disk", DiskUNet(), (1, 32, 32, 3))
+    sp = weights("superpoint", SuperPointNet(), (1, 32, 32, 1))
+    kp, size = jnp.zeros((1, 8, 2)), jnp.ones((1, 2))
+    d256 = jnp.zeros((1, 8, 256))
+    lg = weights("lightglue", LightGlue(input_dim=256, n_layers=2), kp, d256, size, kp, d256, size)
+
+    def run(cmd, art, *flags):
+        cli.main([cmd, "--images", sfm_scene["dir"], "--artifacts", str(tmp_path / art),
+                  "--device", "cpu", "--focal", str(sfm_scene["focal"]), "--max-keypoints",
+                  "512", "--quiet", *flags])
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    out = run("full", "disk", "--frontend", "disk", "--frontend-weights", disk)
+    assert out["registered"] >= 2 and np.isfinite(out["mean_reproj_px"])
+    out = run("densify", "disk", "--model", "sdf", "--grid-resolution", "16", "--ray-stride",
+              "16", "--num-samples", "16", "--dense-downscale", "2")
+    assert out["recipe"]["model"] == "sdf" and np.isfinite(out["final_loss"])
+    out = run("extract", "sp", "--frontend", "superpoint", "--frontend-weights", sp)
+    assert out["images"] == N_VIEWS
+    assert np.load(tmp_path / "sp" / "features.npz")["descriptors"].shape[-1] == 256
+    out = run("match", "sp", "--matcher", "lightglue", "--matcher-weights", lg)
+    assert out["match_timers"]["n_edges"] > 0 and (tmp_path / "sp" / "pairs_meta.json").exists()
 
 
 def _run_cli(argv):

@@ -497,16 +497,23 @@ def test_port_checkpoint_loads_in_tpu3d_and_resumes(tmp_path):
 
 
 def test_unported_training_options_refuse(tmp_path):
-    """What stays unported refuses by name, before it reads anything: the
-    SDF model names ROADMAP item 7d and a device mesh item 10."""
+    """What stays unported refuses by name, before it reads anything: a
+    device mesh names ROADMAP item 10. The SDF model, once refused (item
+    7d), now runs: train_sdf on a small ray set trains and logs."""
     from tpu3d_torch.cli import main
 
     base = ["densify", "--images", str(tmp_path / "none"), "--artifacts", str(tmp_path / "a"),
             "--device", "cpu"]
-    for extra, item in ((["--model", "sdf"], "item 7d"), (["--mesh", "auto"], "item 10"),
+    for extra, item in ((["--mesh", "auto"], "item 10"),
                         (["--mesh", "2x4", "--contraction"], "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             main(base + extra)
+    o, d, rgb, _ = _rays()
+    cfg = DenseConfig(grid_resolution=SRES, batch_size=BATCH, num_samples=8, epochs=1)
+    grid, losses = TT.train_sdf(TT.RayDataset(o, d, rgb), cfg, verbose=False, log_every=1,
+                                device="cpu")
+    assert grid.resolution == (SRES,) * 3 and len(losses) == N_RAYS // BATCH
+    assert np.all(np.isfinite(losses))
 
 
 # --------------------------------------------------------------------------

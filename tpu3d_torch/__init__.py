@@ -12,7 +12,9 @@ raises. The kernels of the ported paths (extract → retrieve → match →
 reconstruct, and the dense stage's training and render/eval) are CUDA C++
 (``csrc/``), one for each of tpu3d's Pallas kernels, built at first use; on
 a CPU tensor their wrappers use the plain PyTorch version of the same
-function.
+function. The learned models (DISK, SuperPoint, LightGlue) are plain jnp /
+Flax in tpu3d, so here they are torch modules (cuDNN convolutions and
+full-f32 products inside ``f32_scope``).
 """
 from __future__ import annotations
 

@@ -1,20 +1,24 @@
 """The port's entry points: tpu3d's staged sparse commands ``cli extract``,
 ``match``, ``reconstruct`` and ``export`` (tpu3d/cli.py:147-229, :286-416,
 :1118-1125), ``cli full`` (images to poses, points and PLY, :1167-1223),
-``cli densify`` (training, :417-820), ``cli densify --eval-only``
-(:847-920) and ``cli render`` (:1011-1115).
+``cli densify`` (training, :417-820, the plenoxel or the SDF model),
+``cli densify --eval-only`` (:847-920), ``cli render`` (:1011-1115),
+``cli mesh`` (:973-1008) and ``cli ingest`` (:1129-1164).
 
     python -m tpu3d_torch.cli extract --images DIR --artifacts DIR [--downscale N]
-        [--limit N] [tpu3d's sparse-stage flags]
+        [--limit N] [--frontend classical|disk|superpoint --frontend-weights W]
+        [tpu3d's sparse-stage flags]
     python -m tpu3d_torch.cli match --images DIR --artifacts DIR
+        [--matcher mnn|lightglue --matcher-weights W]
     python -m tpu3d_torch.cli reconstruct --images DIR --artifacts DIR
         [--from-matches] [--mode incremental|global] [--ply out.ply]
     python -m tpu3d_torch.cli export --images DIR --artifacts DIR [--out DIR]
     python -m tpu3d_torch.cli full --images DIR --artifacts DIR [--downscale N]
         [--limit N] [--mode incremental|global] [--register-all] [--ply out.ply]
+        [--frontend ... --frontend-weights W] [--matcher ... --matcher-weights W]
         [tpu3d's sparse-stage flags]
-    python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--epochs N]
-        [--ray-stride S] [--norm coremax|core|legacy] [--hierarchical]
+    python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--model plenoxel|sdf]
+        [--epochs N] [--ray-stride S] [--norm coremax|core|legacy] [--hierarchical]
         [--contraction [--norm-core-q Q --norm-core-radius R --band-core-radius B]]
         [--coarse-epochs N] [--occupancy] [--camera-gate --camera-gate-epoch E]
         [--aniso-grid] [--detail-epochs N [--detail-res R]] [--detail-only]
@@ -22,9 +26,12 @@
         [--sh-background] [--dense-optimizer adam|rmsprop]
         [--no-checkpoint [--final-grid]] [--resume]
     python -m tpu3d_torch.cli densify --rays-pkl F [--test-rays-pkl F] [--near N --far F]
-        --images DIR --artifacts DIR
+        [--model plenoxel|sdf] --images DIR --artifacts DIR
     python -m tpu3d_torch.cli densify --eval-only --images DIR --artifacts DIR
     python -m tpu3d_torch.cli render --images DIR --artifacts DIR [--orbit N]
+    python -m tpu3d_torch.cli mesh --images DIR --artifacts DIR [--iso L] [--out F.ply]
+    python -m tpu3d_torch.cli ingest (--frontend disk|superpoint --frontend-weights CKPT
+        | --matcher-weights CKPT) [--out F.npz]
 
 They read and write tpu3d's artifacts unchanged: ``extract`` writes
 ``features`` and ``features_meta``; ``match`` reads them and writes the
@@ -40,19 +47,22 @@ first" and exits 1. Training reads
 ``dense_grid`` (and a cascade's ``dense_grid_detail``), ``mesh_grid``,
 ``dense_meta`` and ``dense_result``; eval and
 render take the normalization, band, sample count, per-ray box clipping and
-contraction the grid was trained with from ``dense_meta``. ``extract``,
-``match``, ``reconstruct``, ``export``, ``full``,
-``densify``, ``densify_from_rays``, ``densify_eval_only`` and
-``render_artifacts`` are the functions behind the commands; they run on
-the card unless given ``device="cpu"``. ``extract`` and ``full`` take a
-directory of images or the decoded ``(gray_u8, rgb_u8)`` arrays.
+contraction the grid was trained with from ``dense_meta``; ``mesh`` reads
+``mesh_grid`` and writes a PLY mesh. ``ingest`` converts one torch
+checkpoint to tpu3d's .npz param store (the released checkpoints are not
+in the repository). ``extract``, ``match``, ``reconstruct``, ``export``,
+``full``, ``densify``, ``densify_from_rays``, ``densify_eval_only``,
+``render_artifacts``, ``mesh`` and ``ingest`` are the functions behind the
+commands; those that compute on a device run on the card unless given
+``device="cpu"``. ``extract`` and ``full`` take a directory of images or the
+decoded ``(gray_u8, rgb_u8)`` arrays.
 
-Not ported: extract's multi-process branches (ROADMAP Queue 1 item 10),
-the SequentialPrematcher's ``prematch.npz`` memo (item 12; ``extract``
-still removes a stale one, as tpu3d's does), and tpu3d's XLA compile cache
-and dispatch counts, which are XLA machinery. ``densify --model sdf``,
-``--mesh``, ``--frontend disk|superpoint`` and ``--matcher lightglue`` raise
-NotImplementedError naming their ROADMAP item.
+Not ported: ``densify --mesh`` (tpu3d's device mesh) and extract's
+multi-process branches (ROADMAP Queue 1 item 10; ``--mesh`` raises
+NotImplementedError naming it), the SequentialPrematcher's
+``prematch.npz`` memo (item 12; ``extract`` still removes a stale one, as
+tpu3d's does), and tpu3d's XLA compile cache and dispatch counts, which are
+XLA machinery.
 """
 from __future__ import annotations
 
@@ -78,7 +88,7 @@ from tpu3d_torch.dense.render import render_image
 from tpu3d_torch.dense.train import (LAST_TRAIN_AUX, SceneNormalization, auto_near_far,
                                      core_points, normalize_scene, normalize_scene_contracted,
                                      normalize_scene_coremax, normalize_scene_legacy, psnr,
-                                     train_plenoxel)
+                                     train_plenoxel, train_sdf)
 from tpu3d_torch.io.artifacts import ArtifactStore
 from tpu3d_torch.io.ply import write_ply
 from tpu3d_torch.io.raydata import load_ray_dataset
@@ -279,8 +289,8 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
             max_eval_views: int = 8, include_low_confidence: bool = False,
             no_checkpoint: bool = False, final_grid: bool = False, resume: bool = False,
             downscale: int = 1, log_every: int = 170, verbose: bool = False,
-            renders: Optional[list] = None, device="cuda") -> dict:
-    """Train the plenoxel grid of the registered views and score it, as
+            renders: Optional[list] = None, model: str = "plenoxel", device="cuda") -> dict:
+    """Train the plenoxel (or SDF) grid of the registered views and score it, as
     tpu3d's ``cmd_densify`` with the same flags: normalize the scene
     (``norm``, or the contraction's normalization), take the sampling band
     from the sparse cloud, hold out the name-keyed test views, train
@@ -291,6 +301,10 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     (unless ``no_checkpoint`` without ``final_grid``), ``dense_grid_detail``,
     ``mesh_grid`` and ``dense_meta``, evaluate the held-out views (the pair
     for a cascade) and write and return ``dense_result``.
+
+    ``model="sdf"`` trains the SDF grid instead (``train_sdf``, no
+    checkpoints and no cascade, as in tpu3d) and scores and records it with
+    its training band: near 1e-3, far 1e3, per-ray box clipping.
 
     Under ``contraction`` per-ray box clipping is off, ``occupancy`` is
     dropped (the disparity tail takes its place) and ``aniso_grid`` is
@@ -308,6 +322,10 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     dense_meta. scene_scale 0 is tpu3d's auto (1.0 under coremax and core,
     else 1.5). ``renders``, if a list, receives the held-out renders."""
     dev = resolve_device(device)
+    if model not in ("plenoxel", "sdf"):
+        raise ValueError(f"unknown dense model {model!r}: plenoxel or sdf")
+    if model == "sdf" and detail_only:
+        raise ValueError("--detail-only needs a saved dense_grid and the plenoxel model")
     store = _store(artifacts)
     cams, reg_names, meta = registered_views(store, include_low_confidence)
     points = _load(store, "reconstruction", "run `reconstruct` first")["points"]
@@ -372,6 +390,16 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
                                             "--final-grid first"), dev)
         losses, dropped = [], []
         detail_epochs = detail_epochs if detail_epochs > 0 else 4
+    elif model == "sdf":
+        grid, losses = train_sdf(dataset, cfg, verbose=verbose, log_every=log_every, grid=grid0,
+                                 device=dev)
+        del grid0
+        bg = LAST_TRAIN_AUX.get("background")
+        bg_sh = None if bg is None else torch.from_numpy(bg).to(dev)
+        dropped = []
+        # no cascade for the SDF model (tpu3d/cli.py:625); scored and recorded with the training band (tpu3d/cli.py:613-618)
+        near, far, per_ray_aabb = 1e-3, 1e3, True
+        cfg = dataclasses.replace(cfg, near=near, far=far, per_ray_aabb=per_ray_aabb)
     else:
         grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
                                       checkpoint_store=None if no_checkpoint else store,
@@ -381,7 +409,7 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
         bg_sh = None if bg is None else torch.from_numpy(bg).to(dev)
         dropped = list(LAST_TRAIN_AUX.get("dropped_cameras", []))
     detail = None
-    if detail_epochs > 0:
+    if detail_epochs > 0 and model != "sdf":
         lo, hi, dres = _detail_box(points, nrm, coremax_q, contraction, grid,
                                    detail_res or grid_resolution)
         if verbose:
@@ -406,7 +434,7 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     store.save("mesh_grid", grid=grid.grid[..., [0, 1, 10, 19]].cpu().numpy().astype(np.float16),
                **bounds, contraction=np.asarray(contraction))
     store.save_json("dense_meta", {
-        "model": "plenoxel", "near": float(near), "far": float(far),
+        "model": model, "near": float(near), "far": float(far),
         "num_samples": int(num_samples), "per_ray_aabb": bool(per_ray_aabb),
         "downscale": int(downscale), "contraction": bool(contraction),
         "norm_center": np.asarray(nrm.center, np.float64).tolist(),
@@ -438,7 +466,7 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
             renders.extend(ev["renders"])
     out["recipe"] = {"epochs": epochs, "coarse_epochs": coarse_epochs,
                      "grid_resolution": grid_resolution, "contraction": bool(contraction),
-                     "coremax_q": coremax_q, "detail_epochs": detail_epochs, "model": "plenoxel"}
+                     "coremax_q": coremax_q, "detail_epochs": detail_epochs, "model": model}
     store.save_json("dense_result", out)
     return out
 
@@ -449,14 +477,16 @@ def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str
                       hierarchical: bool = False, scene_scale: float = 0.0,
                       optimizer: str = "adam", occupancy: bool = False, tv_sigma: float = 0.0,
                       tv_sh: float = 0.0, no_checkpoint: bool = False, resume: bool = False,
-                      log_every: int = 170, verbose: bool = False, device="cuda") -> dict:
+                      log_every: int = 170, verbose: bool = False, model: str = "plenoxel",
+                      device="cuda") -> dict:
     """tpu3d's ``densify --rays-pkl`` (_densify_from_rays, tpu3d/cli.py:923-970):
     train on an (N, 9) ray file (io/raydata.py) with the band [near, far]
     (the reference's 2 and 6 where 0) and the grid half-extent
     ``scene_scale`` (1.5 where 0); save ``dense_grid`` unless
     ``no_checkpoint``; with ``test_rays_pkl``, the PSNR of its rays
-    rendered by the trained grid. Returns {final_loss, psnr_train_proxy[,
-    test_psnr]}; writes no dense_result."""
+    rendered by the trained grid. ``model="sdf"`` trains the SDF grid
+    (``train_sdf``: no checkpoints, no resume). Returns {final_loss,
+    psnr_train_proxy[, test_psnr]}; writes no dense_result."""
     dev = resolve_device(device)
     store = _store(artifacts)
     dataset = load_ray_dataset(rays_pkl)
@@ -468,9 +498,12 @@ def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str
                       near=near if near > 0 else DenseConfig.near,
                       far=far if far > 0 else DenseConfig.far, occupancy_prune=occupancy,
                       tv_sigma=tv_sigma, tv_sh=tv_sh)
-    grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
-                                  checkpoint_store=None if no_checkpoint else store,
-                                  resume=resume, device=dev)
+    if model == "sdf":
+        grid, losses = train_sdf(dataset, cfg, verbose=verbose, log_every=log_every, device=dev)
+    else:
+        grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
+                                      checkpoint_store=None if no_checkpoint else store,
+                                      resume=resume, device=dev)
     if not no_checkpoint:
         store.save("dense_grid", grid=grid.grid.cpu().numpy(),
                    min_bound=grid.min_bound.cpu().numpy(), max_bound=grid.max_bound.cpu().numpy())
@@ -483,6 +516,35 @@ def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str
                             cfg.num_samples, clip_aabb=cfg.per_ray_aabb)
         out["test_psnr"] = psnr(pred.cpu().numpy(), test.rgb)
     return out
+
+
+def mesh(artifacts: Artifacts, iso: float = 0.0, out: str = "") -> dict:
+    """tpu3d's ``cmd_mesh`` (tpu3d/cli.py:973-1008): the iso-surface of the
+    saved ``mesh_grid``'s density by marching tetrahedra, its vertices
+    merged, coloured by the SH DC term, unwarped by ``contract_inv`` when the
+    grid was contracted, written as a PLY mesh to ``out`` (default
+    ARTIFACTS/mesh.ply). iso <= 0 takes the 0.99 quantile of the positive
+    densities. Host numpy, as tpu3d's. Returns {vertices, faces, iso, path}."""
+    from tpu3d_torch.dense.contract import contract_inv
+    from tpu3d_torch.dense.mesh import dedup_mesh, marching_tetrahedra
+    from tpu3d_torch.io.ply import write_ply_mesh
+
+    store = _store(artifacts)
+    d = _load(store, "mesh_grid", "run `densify` first")
+    sigma = d["grid"][..., 0].astype(np.float32)
+    # channels [sigma, SH DC r, g, b]; the DC basis is 0.282095
+    rgb = np.clip(d["grid"][..., 1:4].astype(np.float32) * 0.282095, 0.0, 1.0)
+    if iso <= 0:
+        pos = sigma[sigma > 0]
+        iso = float(np.quantile(pos, 0.99)) if len(pos) else 0.0
+        print(f"auto iso level: {iso:.3f}", file=sys.stderr)
+    verts, faces, cols = marching_tetrahedra(sigma, iso, d["min_bound"], d["max_bound"], rgb)
+    verts, faces, cols = dedup_mesh(verts, faces, cols)
+    if bool(np.asarray(d.get("contraction", False))):
+        verts = contract_inv(torch.from_numpy(np.asarray(verts, np.float32))).numpy()
+    out = out or os.path.join(store.root, "mesh.ply")
+    n = write_ply_mesh(out, verts, faces, cols)
+    return {"vertices": int(len(verts)), "faces": int(n), "iso": round(iso, 4), "path": out}
 
 
 def _trusted_split(meta: dict, per_view, names) -> Optional[Tuple[float, list]]:
@@ -679,6 +741,29 @@ def export(artifacts: Artifacts, out: str = "", device="cuda") -> dict:
     return {"out": out, "written": export_reference_layout(root, out, device)}
 
 
+def ingest(frontend: str = "disk", frontend_weights: str = "", matcher_weights: str = "",
+           out: str = "") -> dict:
+    """tpu3d's ``cmd_ingest`` (tpu3d/cli.py:1129-1164): one torch checkpoint
+    (DISK or SuperPoint with ``frontend_weights``, or LightGlue with
+    ``matcher_weights``) converted to tpu3d's flat .npz param store at
+    ``out`` (default: the checkpoint's path with .npz), which tpu3d and the
+    port both load. Returns {model, source, out, arrays}."""
+    from tpu3d_torch.features.learned import (count_arrays, load_frontend_params,
+                                              load_matcher_params, save_params_npz)
+
+    if bool(frontend_weights) == bool(matcher_weights):
+        raise ValueError("ingest converts ONE checkpoint: give either --frontend-weights "
+                         "or --matcher-weights")
+    if matcher_weights:
+        params, kind, src = load_matcher_params(matcher_weights), "lightglue", matcher_weights
+    else:
+        params = load_frontend_params(frontend, frontend_weights)
+        kind, src = frontend, frontend_weights
+    out = out or (os.path.splitext(src)[0] + ".npz")
+    save_params_npz(out, params)
+    return {"model": kind, "source": src, "out": out, "arrays": count_arrays(params)}
+
+
 def build_config(args) -> PipelineConfig:
     """The pipeline config of tpu3d's ``_build_config`` (tpu3d/cli.py:26-63)
     from the command's flags; the focal length is divided by the
@@ -713,15 +798,6 @@ def build_config(args) -> PipelineConfig:
     )
 
 
-def _refuse_unported(args, command: str) -> None:
-    for flag, bad, item in ((f"--frontend {args.frontend}", args.frontend != "classical",
-                             "Queue 1 item 9"),
-                            (f"--matcher {args.matcher}", args.matcher != "mnn", "Queue 1 item 9")):
-        if bad:
-            raise NotImplementedError(f"tpu3d_torch: {command} {flag} is not ported yet "
-                                      f"(ROADMAP {item})")
-
-
 def _image_names(args) -> list:
     from tpu3d_torch.io.images import list_images
 
@@ -746,14 +822,12 @@ def _features_meta(args) -> dict:
 
 
 def _cmd_full(args) -> None:
-    _refuse_unported(args, "full")
     out = full(args.images, args.artifacts, build_config(args), _image_names(args),
                args.downscale, args.ply, args.mode, verbose=not args.quiet, device=args.device)
     print(json.dumps(out))
 
 
 def _cmd_extract(args) -> None:
-    _refuse_unported(args, "extract")
     out = extract(args.images, args.artifacts, build_config(args), _image_names(args),
                   args.downscale, verbose=not args.quiet, device=args.device)
     print(f"extracted {out['images']} images in {out['seconds']:.1f}s -> "
@@ -762,7 +836,6 @@ def _cmd_extract(args) -> None:
 
 
 def _cmd_match(args) -> None:
-    _refuse_unported(args, "match")
     out = match(args.artifacts, _rescaled_config(args, _features_meta(args)),
                 verbose=not args.quiet, device=args.device)
     print(f"matched {out['images']} images / {out['edges']} edges in {out['seconds']:.1f}s")
@@ -770,7 +843,6 @@ def _cmd_match(args) -> None:
 
 
 def _cmd_reconstruct(args) -> None:
-    _refuse_unported(args, "reconstruct")
     try:
         out = reconstruct(args.artifacts, _rescaled_config(args, _features_meta(args)),
                           args.mode, args.from_matches, args.ply, verbose=not args.quiet,
@@ -821,14 +893,34 @@ def _cmd_render(args) -> None:
                       "seconds": round(time.time() - t0, 1)}))
 
 
+def _cmd_mesh(args) -> None:
+    try:
+        out = mesh(args.artifacts, args.iso, args.out)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        sys.exit(1)
+    print(json.dumps(out))
+
+
+def _cmd_ingest(args) -> None:
+    try:
+        out = ingest(args.frontend, args.frontend_weights, args.matcher_weights, args.out)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        sys.exit(2)
+    print(json.dumps(out))
+
+
 def _cmd_densify(args) -> None:
     from tpu3d_torch.io.images import load_images
 
-    for flag, bad, item in (("--model sdf", args.model == "sdf", "Queue 1 item 7d"),
-                            (f"--mesh {args.mesh}", bool(args.mesh), "Queue 1 item 10")):
-        if bad:
-            raise NotImplementedError(f"tpu3d_torch: densify {flag} is not ported yet "
-                                      f"(ROADMAP {item})")
+    if args.mesh:
+        raise NotImplementedError(f"tpu3d_torch: densify --mesh {args.mesh} is not ported yet "
+                                  "(ROADMAP Queue 1 item 10)")
+    if args.detail_only and args.model == "sdf":
+        print("--detail-only needs a saved dense_grid (run the base densify with --final-grid "
+              "first) and the plenoxel model", file=sys.stderr)
+        sys.exit(1)
     store = ArtifactStore(args.artifacts)
     if args.rays_pkl:
         out = densify_from_rays(store, args.rays_pkl, test_rays_pkl=args.test_rays_pkl,
@@ -838,7 +930,8 @@ def _cmd_densify(args) -> None:
                                 scene_scale=args.scene_scale, optimizer=args.dense_optimizer,
                                 occupancy=args.occupancy, tv_sigma=args.tv_sigma,
                                 tv_sh=args.tv_sh, no_checkpoint=args.no_checkpoint,
-                                resume=args.resume, verbose=not args.quiet, device=args.device)
+                                resume=args.resume, verbose=not args.quiet, model=args.model,
+                                device=args.device)
         print(json.dumps(out))
         return
     ds = _downscale(store, args.dense_downscale)
@@ -867,7 +960,7 @@ def _cmd_densify(args) -> None:
                   include_low_confidence=args.include_low_confidence,
                   no_checkpoint=args.no_checkpoint, final_grid=args.final_grid,
                   resume=args.resume, downscale=ds, verbose=not args.quiet, renders=renders,
-                  device=args.device)
+                  model=args.model, device=args.device)
     if renders:
         from PIL import Image
 
@@ -881,11 +974,12 @@ def _cmd_densify(args) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(prog="tpu3d_torch",
                                 description="tpu3d's sparse stages (extract, match, "
-                                            "reconstruct, export, full) and dense stage "
-                                            "(train, eval, render) on the GPU")
+                                            "reconstruct, export, full), dense stage "
+                                            "(train, eval, render, mesh) and checkpoint "
+                                            "ingest on the GPU")
     p.add_argument("command", choices=["extract", "match", "reconstruct", "export", "full",
-                                       "densify", "render"])
-    p.add_argument("--images", required=True)
+                                       "densify", "render", "mesh", "ingest"])
+    p.add_argument("--images", default="", help="image directory (every command but ingest)")
     p.add_argument("--artifacts", default="artifacts")
     p.add_argument("--downscale", type=int, default=1)
     p.add_argument("--dense-downscale", type=int, default=4)
@@ -893,10 +987,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--focal", type=float, default=2378.98305085)
     # full: tpu3d's sparse-stage flags
     p.add_argument("--max-keypoints", type=int, default=2048)
-    p.add_argument("--frontend", choices=["classical", "disk", "superpoint"], default="classical")
-    p.add_argument("--frontend-weights", default="")
-    p.add_argument("--matcher", choices=["mnn", "lightglue"], default="mnn")
-    p.add_argument("--matcher-weights", default="")
+    p.add_argument("--frontend", choices=["classical", "disk", "superpoint"], default="classical",
+                   help="keypoint frontend: the classical DoG/SIFT one or a learned model "
+                        "(needs --frontend-weights)")
+    p.add_argument("--frontend-weights", default="",
+                   help="the learned frontend's weights: a converted .npz or a torch checkpoint")
+    p.add_argument("--matcher", choices=["mnn", "lightglue"], default="mnn",
+                   help="descriptor matcher: mutual-NN or LightGlue (needs --matcher-weights)")
+    p.add_argument("--matcher-weights", default="",
+                   help="LightGlue's weights: a converted .npz or a torch checkpoint")
     p.add_argument("--max-tracks", type=int, default=400_000)
     p.add_argument("--min-raw-matches", type=int, default=100)
     p.add_argument("--ransac-hypotheses", type=int, default=512)
@@ -966,9 +1065,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--test-rays-pkl", default="", help="rays-pkl: held-out ray file")
     p.add_argument("--near", type=float, default=0.0, help="rays-pkl: band near (0 = 2)")
     p.add_argument("--far", type=float, default=0.0, help="rays-pkl: band far (0 = 6)")
-    # tpu3d's options that the port refuses (NotImplementedError)
-    p.add_argument("--model", choices=["plenoxel", "sdf"], default="plenoxel")
+    p.add_argument("--model", choices=["plenoxel", "sdf"], default="plenoxel",
+                   help="densify: the plenoxel grid or the SDF grid")
+    # tpu3d's device mesh: refused (NotImplementedError, ROADMAP Queue 1 item 10)
     p.add_argument("--mesh", default="")
+    p.add_argument("--iso", type=float, default=0.0,
+                   help="mesh: iso level of the density (0 = the 0.99 quantile of the "
+                        "positive densities)")
     p.add_argument("--holdout-every", type=int, default=8)
     p.add_argument("--max-eval-views", type=int, default=8)
     p.add_argument("--include-low-confidence", action="store_true")
@@ -978,14 +1081,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                    help="render: also N novel views along the registered trajectory")
     p.add_argument("--render-stride", type=int, default=1)
     p.add_argument("--out", default="", help="render: PNG directory (default ARTIFACTS/renders); "
-                   "export: destination (default ARTIFACTS/output)")
+                   "export: destination (default ARTIFACTS/output); mesh: PLY path (default "
+                   "ARTIFACTS/mesh.ply); ingest: .npz path (default the checkpoint's)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--cpu", dest="device", action="store_const", const="cpu",
                    help="the same as --device cpu")
     args = p.parse_args(argv)
+    if args.command != "ingest" and not args.images:
+        p.error("--images is required")
     {"extract": _cmd_extract, "match": _cmd_match, "reconstruct": _cmd_reconstruct,
      "export": _cmd_export, "full": _cmd_full, "densify": _cmd_densify,
-     "render": _cmd_render}[args.command](args)
+     "render": _cmd_render, "mesh": _cmd_mesh, "ingest": _cmd_ingest}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ Pallas sampler) and its training routes (``render_rays`` under autodiff,
 samples through ``kernels/trilinear.py`` (the CUDA kernel on the card) and,
 when the grid requires grad, through ``kernels/trilinear_grad.py``'s
 autograd Function, whose backward is the CUDA scatter kernel.
+``render_rays_aabb`` renders the SDF grid with per-ray box bands.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from tpu3d_torch.dense.contract import contract as contract_pts
 from tpu3d_torch.dense.grid import VoxelGrid, eval_sh
 from tpu3d_torch.dense.occupancy import occupancy_from_grid, sample_occupied
-from tpu3d_torch.dense.sdf import linspace01, ray_aabb, sample_pdf, sample_stratified
+from tpu3d_torch.dense.sdf import (SDFGrid, linspace01, query_sdf_sh, ray_aabb, sample_pdf,
+                                   sample_stratified)
 from tpu3d_torch.kernels.trilinear import trilinear_sample
 from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
 
@@ -167,6 +169,27 @@ def render_rays(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
     sigma, rgb = _shade(*_sample(vg, pts, base_vg), dirs)
     return composite(sigma.reshape(n, n_samples), rgb.reshape(n, n_samples, 3), z,
                      white_bg, bg)
+
+
+def render_rays_aabb(sg: SDFGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                     n_samples: int = 160, white_bg: bool = True, perturb: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None, bg: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SDF-grid rendering with per-ray box bounds (tpu3d/dense/render.py:150-172,
+    ref sdf.py:391-406): each ray's band is its stretch inside the box
+    (t_far = t_near + 1 on a ray that misses it), depths stratified
+    (jittered with ``perturb`` from ``generator`` or the (N, n_samples)
+    uniforms ``u``). Rays that miss are masked, not dropped: returns (rgb
+    (N, 3), valid (N,))."""
+    n = rays_o.shape[0]
+    t_near, t_far, valid = ray_aabb(rays_o, rays_d, sg.min_bound, sg.max_bound)
+    t_far = torch.where(valid, t_far, t_near + 1.0)
+    z = sample_stratified(t_near, t_far, n_samples, perturb, generator, u)
+    pts, dirs = _points(rays_o, rays_d, z, False)
+    sigma, rgb = query_sdf_sh(sg, pts, dirs)
+    out = composite(sigma.reshape(n, n_samples), rgb.reshape(n, n_samples, 3), z, white_bg, bg)
+    return out, valid
 
 
 def render_rays_hierarchical(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,

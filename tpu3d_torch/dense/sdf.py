@@ -1,15 +1,45 @@
-"""Ray samplers of the dense stage (tpu3d/dense/sdf.py:46-101): the ray-box
-slab test, stratified depths (jittered for training) and inverse-CDF
-importance sampling. The SDF grid comes with the SDF model.
+"""The SDF grid and the ray samplers of the dense stage (tpu3d/dense/sdf.py):
+the ray-box slab test, stratified depths (jittered for training),
+inverse-CDF importance sampling, and the SDF model's grid (1 SDF channel +
+27 SH channels) with its queries: the SDF value, its spatial gradient by
+autograd through the plain trilinear interpolant, the gradient-softmax
+proposal weights, and (density, colour) as relu(SDF) and SH.
 
 The jitter is drawn from a ``torch.Generator`` or given as uniforms ``u``,
 as tpu3d's own ``u`` parameter allows; tests pass tpu3d's draws there,
 which torch cannot reproduce."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from tpu3d_torch.dense.grid import VoxelGrid, eval_sh
+from tpu3d_torch.dense.grid import trilinear_sample as trilinear_plain
+from tpu3d_torch.kernels.trilinear import trilinear_sample
+from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
+
+
+class SDFGrid(NamedTuple):
+    grid: torch.Tensor        # (X, Y, Z, 28): 1 SDF + 27 SH
+    min_bound: torch.Tensor
+    max_bound: torch.Tensor
+
+    def as_voxel_grid(self) -> VoxelGrid:
+        return VoxelGrid(self.grid, self.min_bound, self.max_bound)
+
+
+def grid_bounds_from_cloud(points, max_resolution: int = 250, margin: float = 1.5):
+    """Grid bounds = margin x the cloud's box, cut into equal cubes (ref
+    sdf.py:94-108). Returns (min_bound, max_bound, resolution xyz)."""
+    mn = np.min(points, axis=0) * margin
+    mx = np.max(points, axis=0) * margin
+    size = mx - mn
+    box = np.max(size) / max_resolution
+    res = np.maximum(np.ceil(size / box).astype(int), 2)
+    mx = mn + res * box
+    return mn.astype(np.float32), mx.astype(np.float32), tuple(int(r) for r in res)
 
 
 def ray_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, min_bound, max_bound
@@ -87,3 +117,41 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     denom = torch.where(cdf_a - cdf_b < 1e-5, torch.ones_like(cdf_a), cdf_a - cdf_b)
     t = (u - cdf_b) / denom
     return bin_b + t * (bin_a - bin_b)
+
+
+def get_sdf(sg: SDFGrid, pts: torch.Tensor) -> torch.Tensor:
+    """(N,) SDF values at (N, 3) points (the plain interpolant, so that it
+    is differentiable in the points)."""
+    vals, _ = trilinear_plain(sg.grid[..., :1], sg.min_bound, sg.max_bound, pts)
+    return vals[:, 0]
+
+
+def get_sdf_gradient(sg: SDFGrid, pts: torch.Tensor) -> torch.Tensor:
+    """(N, 3) spatial gradient of the interpolated SDF (ref sdf.py:344-348):
+    autograd through the plain trilinear interpolant, as tpu3d's jax.grad
+    (the CUDA kernel's backward gives the grid gradient only)."""
+    with torch.enable_grad():
+        p = pts.detach().clone().requires_grad_()
+        (g,) = torch.autograd.grad(get_sdf(sg, p).sum(), p)
+    return g
+
+
+def gradient_softmax_weights(sg: SDFGrid, pts: torch.Tensor) -> torch.Tensor:
+    """Proposal weights = softmax over |grad sdf| along each ray (ref
+    sdf.py:237-242). pts: (N, S, 3) -> (N, S)."""
+    gm = torch.linalg.norm(get_sdf_gradient(sg, pts.reshape(-1, 3)), dim=-1)
+    return torch.softmax(gm.reshape(pts.shape[:-1]), dim=-1)
+
+
+def query_sdf_sh(sg: SDFGrid, pts: torch.Tensor, dirs: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sigma, rgb) of the SDF grid: density = relu(SDF channel) (ref
+    sdf.py:376-377), colour = SH of channels 1:28 (ref sdf.py:398); both
+    zero outside the box. Samples through the kernel wrapper, and through
+    the scatter kernel's autograd Function when the grid requires grad."""
+    fn = trilinear_sample_diff if sg.grid.requires_grad else trilinear_sample
+    vals, in_bounds = fn(sg.grid, sg.min_bound, sg.max_bound, pts)
+    sigma = torch.relu(vals[:, 0]) * in_bounds
+    k = vals[:, 1:].reshape(*vals.shape[:-1], 3, 9)
+    rgb = eval_sh(k, dirs) * in_bounds[:, None]
+    return sigma, rgb

@@ -5,12 +5,14 @@ device: the lr schedule, the grid optimizers, the per-image exposure and
 SH-background latents, the stochastic TV and sparsity priors, one training
 step and ``train_plenoxel``, with tpu3d's ``dense_ckpt`` checkpoints, its
 coarse-to-fine phase, its occupancy refreshes, its camera gate and the
-frozen base of its two-level cascade, on tpu3d's loop cadence.
+frozen base of its two-level cascade, on tpu3d's loop cadence; and the SDF
+grid's step and loop (``sdf_train_step``, ``train_sdf``).
 
 tpu3d has two step routes, ``make_train_step`` (XLA autodiff through the
-gather) and ``make_train_step_packed`` (the Pallas kernel pair); here
-``train_step`` is one step whose backward runs through
-kernels/trilinear_grad.py (the CUDA scatter kernel on the card). Random
+gather) and ``make_train_step_packed`` (the Pallas kernel pair), and the
+same two for the SDF grid; here ``train_step`` and ``sdf_train_step`` are
+one step each whose backward runs through kernels/trilinear_grad.py (the
+CUDA scatter kernel on the card). Random
 draws (the depth jitter, the epoch permutation, the crop origins) come from
 a ``torch.Generator``; tests inject tpu3d's draws instead (``StepNoise``).
 """
@@ -29,6 +31,7 @@ from tpu3d_torch.core import lie
 from tpu3d_torch.dense.grid import VoxelGrid, create_grid, eval_sh, grid_tensor, resample_grid
 from tpu3d_torch.dense.occupancy import occupancy_from_grid
 from tpu3d_torch.dense.render import jitter_width, render_rays, render_rays_hierarchical
+from tpu3d_torch.dense.sdf import ray_aabb
 from tpu3d_torch.io.ply import filter_point_cloud
 
 
@@ -359,6 +362,48 @@ def draw_step_noise(cfg: DenseConfig, grid_shape, n_rays: int,
     return StepNoise(u, u_fine, tv, sp)
 
 
+def _latents(state: TrainState, cid: Optional[torch.Tensor]):
+    """(gains, bg_sh): the exposure latents (when the batch has camera ids)
+    and the background latents as leaves that take a gradient in this
+    step, or None."""
+    gains = (state.exposure[0].clone().requires_grad_()
+             if state.exposure is not None and cid is not None else None)
+    bg_sh = state.background[0].clone().requires_grad_() if state.background is not None else None
+    return gains, bg_sh
+
+
+def _add_priors(loss: torch.Tensor, grid: torch.Tensor, cfg: DenseConfig,
+                noise: StepNoise) -> torch.Tensor:
+    """The loss plus the TV and sparsity crop priors that cfg turns on."""
+    if cfg.tv_sigma or cfg.tv_sh:
+        tv_s, tv_c = _tv_crop_loss(grid, noise.tv_origin, cfg.tv_crop)
+        loss = loss + cfg.tv_sigma * tv_s + cfg.tv_sh * tv_c
+    if cfg.sparsity_sigma:
+        loss = loss + cfg.sparsity_sigma * _sparsity_crop_loss(grid, noise.sparsity_origin,
+                                                               cfg.tv_crop)
+    return loss
+
+
+def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
+            gains: Optional[torch.Tensor], bg_sh: Optional[torch.Tensor]) -> torch.Tensor:
+    """One backward for the grid and the latents, the latents' Adam, then
+    the grid optimizer at the scheduled lr. Returns the detached loss."""
+    loss.backward()
+    with torch.no_grad():
+        if gains is not None:
+            state.exposure = _exposure_adam(state.exposure, gains.grad, state.step,
+                                            cfg.exposure_lr)
+        if bg_sh is not None:
+            state.background = _exposure_adam(state.background, bg_sh.grad, state.step,
+                                              cfg.background_lr)
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.lr(state.step)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    return loss.detach()
+
+
 def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
                rays_d: torch.Tensor, rgb: torch.Tensor, cid: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
@@ -379,10 +424,7 @@ def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
     vg = state.grid
     if noise is None:
         noise = draw_step_noise(cfg, vg.grid.shape, rays_o.shape[0], generator, rays_o.device)
-    has_exp = state.exposure is not None and cid is not None
-    has_bg = state.background is not None
-    gains = state.exposure[0].clone().requires_grad_() if has_exp else None
-    bg_sh = state.background[0].clone().requires_grad_() if has_bg else None
+    gains, bg_sh = _latents(state, cid)
     bg = _ray_background(bg_sh, rays_d)
     if cfg.hierarchical:
         pred = render_rays_hierarchical(vg, rays_o, rays_d, cfg.near, cfg.far, cfg.n_coarse,
@@ -396,27 +438,48 @@ def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
                            cfg.white_background, clip_aabb=cfg.per_ray_aabb, bg=bg,
                            contract=cfg.contraction, base_vg=base, perturb=True, u=noise.u,
                            occ=occ, occ_probes=cfg.occupancy_probes)
-    loss = ((_exposure_apply(pred, gains, cid if has_exp else None) - rgb) ** 2).mean()
-    if cfg.tv_sigma or cfg.tv_sh:
-        tv_s, tv_c = _tv_crop_loss(vg.grid, noise.tv_origin, cfg.tv_crop)
-        loss = loss + cfg.tv_sigma * tv_s + cfg.tv_sh * tv_c
-    if cfg.sparsity_sigma:
-        loss = loss + cfg.sparsity_sigma * _sparsity_crop_loss(vg.grid, noise.sparsity_origin,
-                                                               cfg.tv_crop)
-    loss.backward()
-    with torch.no_grad():
-        if has_exp:
-            state.exposure = _exposure_adam(state.exposure, gains.grad, state.step,
-                                            cfg.exposure_lr)
-        if has_bg:
-            state.background = _exposure_adam(state.background, bg_sh.grad, state.step,
-                                              cfg.background_lr)
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.lr(state.step)
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
-    return loss.detach()
+    loss = ((_exposure_apply(pred, gains, cid) - rgb) ** 2).mean()
+    return _update(state, cfg, _add_priors(loss, vg.grid, cfg, noise), gains, bg_sh)
+
+
+# The SDF step's band: from the ray's box entry to its exit (far is only an
+# upper clip), as tpu3d's packed SDF step (train.py:949).
+SDF_FAR = 1e6
+
+
+def sdf_noise_config(cfg: DenseConfig) -> DenseConfig:
+    """The config whose StepNoise an SDF step takes: the SDF path samples
+    cfg.num_samples stratified depths whatever cfg.hierarchical and
+    cfg.contraction say (tpu3d's SDF steps read neither)."""
+    return dataclasses.replace(cfg, hierarchical=False, contraction=False)
+
+
+def sdf_train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor, rgb: torch.Tensor, cid: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[StepNoise] = None) -> torch.Tensor:
+    """One SDF-grid training step (tpu3d/dense/train.py:940-1021, ref
+    sdf.py:423-438): the SDF grid is structurally a plenoxel grid (relu
+    density in channel 0, SH colour), so it renders through the same
+    trilinear kernel and scatter backward, with the SDF path's band: near 0,
+    far SDF_FAR, clipped to each ray's stretch inside the box; the MSE
+    counts only the rays that meet the box, divided by max(3 x their
+    count, 1); then the TV and sparsity priors, the exposure gains and the
+    SH background as in :func:`train_step`. Updates ``state`` in place and
+    returns the loss."""
+    vg = state.grid
+    if noise is None:
+        noise = draw_step_noise(sdf_noise_config(cfg), vg.grid.shape, rays_o.shape[0],
+                                generator, rays_o.device)
+    gains, bg_sh = _latents(state, cid)
+    pred = render_rays(vg, rays_o, rays_d, 0.0, SDF_FAR, cfg.num_samples,
+                       cfg.white_background, clip_aabb=True, bg=_ray_background(bg_sh, rays_d),
+                       perturb=True, u=noise.u)
+    pred = _exposure_apply(pred, gains, cid)
+    _, _, valid = ray_aabb(rays_o, rays_d, vg.min_bound, vg.max_bound)
+    w = valid.to(pred.dtype)[:, None]
+    loss = (w * (pred - rgb) ** 2).sum() / torch.clamp(w.sum() * 3, min=1.0)
+    return _update(state, cfg, _add_priors(loss, vg.grid, cfg, noise), gains, bg_sh)
 
 
 def _optimizer_leaves(state: TrainState) -> List[np.ndarray]:
@@ -494,13 +557,14 @@ def _chunk_plan(steps_per_epoch: int, chunk: int) -> List[Tuple[int, int]]:
 
 
 def _coarse_stage(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: VoxelGrid,
-                  verbose: bool, log_every: int, dev
+                  verbose: bool, log_every: int, dev, train_fn: Optional[Callable] = None
                   ) -> Tuple[VoxelGrid, List[float], DenseConfig, dict]:
     """tpu3d's coarse-to-fine phase (train.py:559-594): train
     cfg.coarse_epochs on ``grid`` resampled down by cfg.coarse_factor (each
     dimension floored to a multiple of 8), camera gate off, then resample
     the result back up. Returns (the upsampled grid, the coarse losses,
-    the config of the remaining epochs, the coarse phase's record)."""
+    the config of the remaining epochs, the coarse phase's record).
+    ``train_fn`` trains the coarse grid: train_plenoxel, or train_sdf."""
     f = max(int(cfg.coarse_factor), 2)
     full_res = grid.resolution
     coarse_res = tuple(max((r // f) // 8 * 8, 8) for r in full_res)
@@ -509,8 +573,9 @@ def _coarse_stage(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: VoxelG
     if verbose:
         print(f"[dense] coarse stage: {coarse_res} for {cfg.coarse_epochs} epochs", flush=True)
     sub = dataclasses.replace(cfg, epochs=cfg.coarse_epochs, coarse_epochs=0, camera_gate=False)
-    small, losses = train_plenoxel(dataset, sub, seed=seed, grid=small, verbose=verbose,
-                                   log_every=log_every, device=dev)
+    small, losses = (train_fn or train_plenoxel)(dataset, sub, seed=seed, grid=small,
+                                                 verbose=verbose, log_every=log_every,
+                                                 device=dev)
     phase = dict(LAST_TRAIN_AUX["phases"][0], phase="coarse")
     up = VoxelGrid(resample_grid(small.grid, full_res), grid.min_bound.clone(),
                    grid.max_bound.clone())
@@ -687,5 +752,92 @@ def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed:
         exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
         dropped_cameras=gate_dropped, log=log, steps=state.step,
         occupancy_refreshes=refreshes, camera_gate=gate, phases=phases)
+    vg = state.grid
+    return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses
+
+
+def _permutation(n: int, generator: torch.Generator, device, epoch: int) -> torch.Tensor:
+    """An epoch's ray order. A test replaces this function (and
+    :func:`_sdf_step_noise`) to feed tpu3d's draws."""
+    return torch.randperm(n, generator=generator, device=device)
+
+
+def _sdf_step_noise(cfg: DenseConfig, grid_shape, n_rays: int, generator: torch.Generator,
+                    device, epoch: int, step: int) -> StepNoise:
+    """Step ``step`` of epoch ``epoch``'s random numbers for the SDF step."""
+    return draw_step_noise(sdf_noise_config(cfg), grid_shape, n_rays, generator, device)
+
+
+def train_sdf(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed: int = 0,
+              grid: Optional[VoxelGrid] = None, verbose: bool = True, log_every: int = 170,
+              mesh=None, device="cuda") -> Tuple[VoxelGrid, List[float]]:
+    """tpu3d's SDF-grid training loop (train.py:1024-1124, ref
+    sdf.py:409-445) on ``device``: the plenoxel loop's schedule and batching
+    (:func:`sdf_train_step` per step, the rays uploaded once and shuffled on
+    the device each epoch, the loss read back every ``log_every`` steps of
+    an epoch, on tpu3d's scan-chunk plan), a coarse phase first when
+    cfg.coarse_epochs asks (:func:`_coarse_stage`), and a fresh grid over
+    [-s, s]^3, s 2 under contraction and cfg.scene_scale otherwise. No
+    checkpoints, occupancy or camera gate (tpu3d's has none). ``mesh``
+    (tpu3d's brick-sharded trainer) is ROADMAP Queue 1 item 10. Returns
+    (the trained grid, the logged losses); LAST_TRAIN_AUX has the latents,
+    the log and the phases."""
+    if mesh is not None:
+        raise NotImplementedError("tpu3d_torch: train_sdf(mesh=...) is not ported yet "
+                                  "(ROADMAP Queue 1 item 10)")
+    cfg = cfg or DenseConfig()
+    dev = resolve_device(device)
+    n = len(dataset.origins)
+    steps_per_epoch = max(n // cfg.batch_size, 1)
+    if grid is None:
+        s = 2.0 if cfg.contraction else cfg.scene_scale
+        grid = create_grid(cfg.grid_resolution, (-s, -s, -s), (s, s, s), device=dev)
+    phases: List[dict] = []
+    losses: List[float] = []
+    if cfg.coarse_epochs > 0 and cfg.epochs > cfg.coarse_epochs:
+        grid, losses, cfg, coarse = _coarse_stage(dataset, cfg, seed, grid, verbose, log_every,
+                                                  dev, train_fn=train_sdf)
+        phases.append(coarse)
+    n_cams = (int(dataset.cam_ids.max()) + 1
+              if cfg.exposure and dataset.cam_ids is not None else None)
+    state = init_state(cfg, grid, steps_per_epoch, n_cams)
+    del grid
+    o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                             for a in (dataset.origins, dataset.dirs, dataset.rgb))
+    cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
+               if n_cams is not None else None)
+    chunk = 1 if n < cfg.batch_size else max(int(cfg.scan_chunk), 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    B, log = cfg.batch_size, []
+    t0 = time.time()
+    with f32_scope():
+        for epoch in range(cfg.epochs):
+            perm = _permutation(n, gen, dev, epoch)
+            for b, k_steps in _chunk_plan(steps_per_epoch, chunk):
+                for j in range(b, b + k_steps):
+                    idx = perm[j * B:(j + 1) * B]
+                    noise = _sdf_step_noise(cfg, state.grid.grid.shape, len(idx), gen, dev,
+                                            epoch, j)
+                    loss = sdf_train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
+                                          None if cid_all is None else cid_all[idx],
+                                          noise=noise)
+                    if j % log_every == 0:
+                        lv = float(loss)
+                        losses.append(lv)
+                        log.append({"epoch": epoch, "step": j, "update": state.step,
+                                    "loss": lv, "seconds": time.time() - t0})
+                        if verbose:
+                            rate = (j + 1) * B / (time.time() - t0)
+                            print(f"[sdf] epoch {epoch} step {j}/{steps_per_epoch} "
+                                  f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+    phases.append(dict(phase="fine" if phases else "train", res=list(state.grid.resolution),
+                       steps=state.step, log=log, seconds=time.time() - t0))
+    LAST_TRAIN_AUX.clear()
+    LAST_TRAIN_AUX.update(
+        background=None if state.background is None else state.background[0].cpu().numpy(),
+        exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
+        dropped_cameras=[], log=log, steps=state.step, occupancy_refreshes=[],
+        camera_gate=None, phases=phases)
     vg = state.grid
     return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses

@@ -1,4 +1,5 @@
-"""Retrieval, matching and track bookkeeping."""
+"""Retrieval, matching (mutual-NN, and LightGlue in matching/lightglue.py)
+and track bookkeeping."""
 from tpu3d_torch.matching.bow import (build_codebook, kmeans, tfidf_vectors,
                                       topk_similar, vector_quantize)
 from tpu3d_torch.matching.mnn import MatchResult, match_descriptors

@@ -1,9 +1,11 @@
 """The pipeline (tpu3d/sfm/pipeline.py): extract → retrieve → match →
 reconstruct, and ``reconstruct`` which runs them all.
 
-  1. extract     — batched classical frontend (features/), on the device
+  1. extract     — batched classical frontend (features/), or a learned one
+                   (DISK or SuperPoint, features/learned.py), on the device
   2. retrieve    — BoW codebook + tf-idf + top-k view graph (matching/bow)
-  3. match       — every candidate edge matched (mutual-NN) and E-gated in
+  3. match       — every candidate edge matched (mutual-NN, or LightGlue
+                   with cfg.matching.matcher "lightglue") and E-gated in
                    blocks of ``pair_batch`` pairs, then canonical reference
                    selection, retry and 2-hop rescue over the cached
                    results, with union-find tracks
@@ -33,15 +35,19 @@ import torch
 
 from tpu3d_torch import f32_scope, resolve_device
 from tpu3d_torch.config import PipelineConfig, resolve_sfm_backend
+from tpu3d_torch.core.camera import centered_to_pixel
 from tpu3d_torch.core.lie import so3_exp_np, so3_log_np
 from tpu3d_torch.features.frontend import extract_features, sample_colors
+from tpu3d_torch.features.learned import (extract_learned, frontend_module,
+                                          load_frontend_params, load_matcher_params)
 from tpu3d_torch.geometry.estimators import find_essential_ransac, lo_hypotheses
 from tpu3d_torch.geometry.fivepoint import five_point_ransac
 from tpu3d_torch.geometry.ransac import gumbel
 from tpu3d_torch.io.images import list_images, load_images
 from tpu3d_torch.matching.bow import (build_codebook, codebook_draws, tfidf_vectors,
                                       topk_similar, vector_quantize)
-from tpu3d_torch.matching.mnn import match_descriptors
+from tpu3d_torch.matching.lightglue import LightGlue, filter_matches, lightglue_from_tpu3d
+from tpu3d_torch.matching.mnn import MatchResult, match_descriptors
 from tpu3d_torch.matching.pairs import build_view_graph
 from tpu3d_torch.matching.tracks import TrackStore
 from tpu3d_torch.sfm.engine import (MAX_REFS, EdgeObservations, ImageRegistration,
@@ -62,7 +68,7 @@ class ExtractedFeatures:
     valid: np.ndarray         # (N, K) bool
     colors_bgr: np.ndarray    # (N, K, 3)
     image_size: np.ndarray    # (N, 2) (W, H)
-    descriptors_dev: torch.Tensor   # (N, K, 128) f32
+    descriptors_dev: torch.Tensor   # (N, K, D) f32: D 128 (classical, DISK), 256 (SuperPoint)
     valid_dev: torch.Tensor         # (N, K) f32
     keypoints_dev: torch.Tensor     # (N, K, 2) f32
 
@@ -113,13 +119,19 @@ def run_extraction(
     decoded ``(gray_u8 (N, H, W), rgb_u8 (N, H, W, 3))`` arrays.
     ``timers``, when given, gets the seconds spent loading images and in
     the frontend (each batch's keypoints are copied to the host, which
-    waits for the device)."""
+    waits for the device). A learned ``cfg.frontend.model`` (disk: RGB,
+    superpoint: grey) runs with the weights at ``cfg.frontend.weights`` (a
+    converted .npz or a torch checkpoint)."""
     dev = resolve_device(device)
     timers = {} if timers is None else timers
     timers.update(load=0.0, frontend=0.0)
-    if cfg.frontend.model != "classical":
-        raise NotImplementedError(
-            f"frontend model {cfg.frontend.model!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    model = cfg.frontend.model
+    net = None
+    if model != "classical":
+        if not cfg.frontend.weights:
+            raise ValueError(f"frontend model {model!r} needs FrontendConfig.weights (a torch "
+                             "checkpoint or a converted .npz)")
+        net = frontend_module(model, load_frontend_params(model, cfg.frontend.weights), dev)
     B = cfg.frontend.batch_size
     if isinstance(images, (str, os.PathLike)):
         img_dir = os.fspath(images)
@@ -140,7 +152,10 @@ def run_extraction(
         t0 = time.time()
         gray_u8, rgb = load_batch(s)
         t1 = time.time()
-        fs = extract_features(torch.from_numpy(gray_u8), cfg.frontend, device=dev)
+        if net is None:
+            fs = extract_features(torch.from_numpy(gray_u8), cfg.frontend, device=dev)
+        else:
+            fs = extract_learned(net, model, gray_u8, rgb, cfg.frontend, device=dev)
         kps.append(fs.keypoints)
         valid.append(fs.valid)
         desc.append(fs.descriptors)
@@ -236,14 +251,32 @@ def gate_noise_shapes(num_hypotheses: int, K: int):
             (lo_hypotheses(num_hypotheses), K)]
 
 
+def _lightglue_matches(lg: LightGlue, d0, d1, v0, v1, kp0, kp1, size0, size1) -> MatchResult:
+    """LightGlue's matches of a block of pairs as the gate's MatchResult
+    (tpu3d/sfm/pipeline.py:382-402): the centred y-up keypoints mapped back
+    to pixels (what LightGlue normalises), the forward under the validity
+    masks, then filter_matches at 0.1; slot k is keypoint k of image 0."""
+    kp0_px = centered_to_pixel(kp0, size0[:, None, :])
+    kp1_px = centered_to_pixel(kp1, size1[:, None, :])
+    scores = lg(kp0_px, d0, size0, kp1_px, d1, size1, v0, v1)
+    m0, _, ms0, _ = filter_matches(scores, threshold=0.1)
+    B, K = m0.shape
+    return MatchResult(idx0=torch.arange(K, dtype=torch.int32, device=m0.device).expand(B, K),
+                       idx1=torch.clamp(m0, min=0).to(torch.int32),
+                       valid=(m0 >= 0) & (v0 > 0), score=ms0)
+
+
 def _match_and_gate_body(d0, d1, v0, v1, kp0, kp1, noise, focal, thr_px,
-                         ratio, five_point=False):
+                         ratio, five_point=False, lg=None):
     """Match + E-RANSAC gate of a block of pairs (leading axis), packed into
     one (B, 3K + 14) array: per keypoint of image 0 (matched index, raw
     match, gated inlier), then (raw count, cheirality count), R, t.
-    ``noise`` holds the block's draws, shaped as :func:`gate_noise_shapes`."""
+    ``noise`` holds the block's draws, shaped as :func:`gate_noise_shapes`.
+    The matcher is mutual-NN, or LightGlue when ``lg`` = (module, sizes of
+    images 0 (B, 2), sizes of images 1)."""
     B, K = d0.shape[:2]
-    res = match_descriptors(d0, d1, v0, v1, ratio=ratio)
+    res = (match_descriptors(d0, d1, v0, v1, ratio=ratio) if lg is None
+           else _lightglue_matches(lg[0], d0, d1, v0, v1, kp0, kp1, lg[1], lg[2]))
     uv0 = kp0   # slot k of the match result is keypoint k of image 0
     uv1 = torch.gather(kp1, 1, res.idx1.long()[..., None].expand(B, K, 2))
     mvalid = res.valid.to(torch.float32)
@@ -263,6 +296,27 @@ def _match_and_gate_body(d0, d1, v0, v1, kp0, kp1, noise, focal, thr_px,
     return torch.cat([per_kpt.reshape(B, -1), stats, eres.R.reshape(B, 9), eres.t], dim=-1)
 
 
+_LG_CACHE: Dict[Tuple[str, str], LightGlue] = {}
+
+
+def _lightglue_for(cfg, device) -> Optional[LightGlue]:
+    """The LightGlue module of the configured matcher on ``device``, its
+    depth and widths read off the param tree (memoized per weights path and
+    device); None for the mutual-NN matcher."""
+    if cfg.matching.matcher == "mnn":
+        return None
+    if cfg.matching.matcher != "lightglue":
+        raise ValueError(f"unknown matcher {cfg.matching.matcher!r}: mnn or lightglue")
+    path = cfg.matching.weights
+    if not path:
+        raise ValueError("matcher 'lightglue' needs MatchingConfig.weights (a torch "
+                         "checkpoint or a converted .npz)")
+    key = (path, str(device))
+    if key not in _LG_CACHE:
+        _LG_CACHE[key] = lightglue_from_tpu3d(load_matcher_params(path), device)
+    return _LG_CACHE[key]
+
+
 def _match_and_gate_block(feats: ExtractedFeatures, edges, seed, cfg) -> np.ndarray:
     """Gate the (i, j) pairs of ``edges`` in one block; returns host rows."""
     d = feats.descriptors_dev
@@ -270,13 +324,18 @@ def _match_and_gate_block(feats: ExtractedFeatures, edges, seed, cfg) -> np.ndar
     jj = torch.as_tensor([e[1] for e in edges], dtype=torch.int64, device=d.device)
     v = feats.valid_dev
     kp = feats.keypoints_dev
+    lg = _lightglue_for(cfg, d.device)
+    if lg is not None:
+        sizes = torch.as_tensor(np.array(feats.image_size, np.float32), device=d.device)
+        lg = (lg, sizes[ii], sizes[jj])
     with f32_scope(), torch.no_grad():
         noise = _gate_noise(seed, edges, gate_noise_shapes(
             int(cfg.sfm.ransac.num_hypotheses), d.shape[1]), d.device)
         flat = _match_and_gate_body(
             d[ii], d[jj], v[ii], v[jj], kp[ii], kp[jj], noise,
             float(cfg.camera.focal_length), float(cfg.matching.ransac_threshold_px),
-            float(cfg.matching.ratio_threshold), five_point=cfg.sfm.ransac.use_five_point)
+            float(cfg.matching.ratio_threshold), five_point=cfg.sfm.ransac.use_five_point,
+            lg=lg)
     return flat.cpu().numpy()
 
 
@@ -287,9 +346,6 @@ def _batch_match_pairs(feats, pairs, cfg, seed, memo, verbose=False):
     edges = sorted({(min(i, j), max(i, j)) for i, j in pairs if i != j} - set(memo))
     if not edges:
         return memo
-    if cfg.matching.matcher != "mnn":
-        raise NotImplementedError(f"matcher {cfg.matching.matcher!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
     B = max(int(cfg.matching.pair_batch), 1)
     t0 = time.time()
     for s in range(0, len(edges), B):
