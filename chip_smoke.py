@@ -15,7 +15,9 @@ Phases, one line each, any failure exits non-zero:
   1. device  — the card's name and count, and nvidia-smi's name and power
                limit; no card exits 1.
   2. build   — nvcc builds every kernel from tpu3d_torch/csrc into
-               build/tpu3d_torch, with ptxas' register/shared/spill lines.
+               build/tpu3d_torch, with ptxas' register/shared/spill lines;
+               g++ builds the native track store (tpu3d_torch/native) there,
+               and it must load.
   3. kernels — each kernel against its plain PyTorch version on the card at
                the shapes and inputs of the main path (patch_sample at the
                detector's and the descriptor's calls on one real extract
@@ -74,9 +76,18 @@ Phases, one line each, any failure exits non-zero:
                descriptor, then fused_descriptor=True. Per run: seconds per
                stage and the engine's phase timers, registered cameras,
                points, mean reprojection px, camera-centre and rotation error
-               after a similarity alignment to the scene's poses, peak memory
-               and launches. Then the split run's reconstruct stage once more
-               under torch.profiler, for its busy share and top kernels.
+               after a similarity alignment to the scene's poses, peak memory,
+               launches, the dispatch counts (utils/dispatch.py, with the BA
+               read-backs), the batched local BA solves and their problems,
+               and the native track store's calls (each must be > 0). Then
+               the split run's largest chunk of local BA problems solved
+               batched and one by one on the card (the same iterations,
+               within 1e-5, two batched runs bit-identical, at most LM steps
+               + 2 synchronizing calls a solve); the split run's reconstruct
+               stage once more under torch.profiler, for its busy share and
+               top kernels; and cli full through the CLI's traced runner,
+               whose trace must hold the command's and the four stages'
+               spans.
  10. sfm     — the SfM entry points on the same 24 views from arrays, at the
                same config: (a) the staged functions cli.extract -> match ->
                reconstruct(from_matches=True) -> export into a temporary
@@ -89,7 +100,8 @@ Phases, one line each, any failure exits non-zero:
                under torch.profiler; (c) cli.full with register_all and the
                edge-consistency gate: dropped and low-confidence cameras,
                finite poses; (d) refine_focal from 1.25x the scene's focal on
-               (a)'s one-process observations: the focal within 1%.
+               (a)'s one-process observations: the focal within 1%. (b) and
+               (d) print their BA read-backs.
  11. sdf     — densify --model sdf on the card from a fresh directory holding
                only the scene's reconstruction, at tpu3d's default width (256^3
                x 28, 192 samples, batch 2048, Adam) with ray stride 8 (100
@@ -1091,15 +1103,154 @@ def _full_config(scene):
     return dataclasses.replace(cfg, camera=cam, sfm=dataclasses.replace(cfg.sfm, camera=cam))
 
 
+def _build_native() -> None:
+    """Phase 2's second half: g++ builds the native track store from the
+    checkout; a failed build raises, and the library must then load."""
+    from tpu3d_torch import native
+    from tpu3d_torch.native import build as native_build
+
+    t0 = time.time()
+    path = native_build.build(verbose=False)
+    if not native.available():
+        _fail(f"build: the native track store built at {path} does not load")
+    print(f"build: native track store {native.library_path()} in {time.time() - t0:.1f} s",
+          flush=True)
+
+
+@contextlib.contextmanager
+def _capture_local_ba(store: list):
+    """Record the problems of the engine's batched local BA call with the
+    most problems (their host arrays, as the engine stacks them)."""
+    from tpu3d_torch.sfm import engine as E
+
+    orig = E.stack_ba_problems
+
+    def recording(problems):
+        if len(problems) > len(store[0] if store else ()):
+            store[:] = [[tuple(np.copy(a) for a in p) for p in problems]]
+        return orig(problems)
+
+    E.stack_ba_problems = recording
+    try:
+        yield
+    finally:
+        E.stack_ba_problems = orig
+
+
+def _sync_calls(torch, fn):
+    """(fn(), the synchronizing CUDA calls it made): torch's sync debug mode
+    warns at each one (a read-back, a blocking copy, a synchronize)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def _check_local_ba_batch(torch, dev, problems) -> None:
+    """One registration chunk's local BA problems from the full run, solved
+    on the card batched and one by one with the engine's arguments: per
+    problem the same iterations, cameras and points within 1e-5, cost
+    within 1e-5 relative; two batched runs bit-identical; at most LM steps
+    + 2 synchronizing calls per solve (the stop rules run on the card)."""
+    from tpu3d_torch.ba.lm import bundle_adjust, bundle_adjust_batch
+    from tpu3d_torch.config import BAConfig
+    from tpu3d_torch.sfm.engine import stack_ba_problems
+
+    kw = dict(max_iters=BAConfig.max_iters // 2, cg_iters=8, stall_tol=1e-4)
+    if len(problems) < 2:
+        _fail(f"local BA (batched): the full run's largest chunk held {len(problems)} problems")
+    stacked = [torch.from_numpy(a).to(dev) for a in stack_ba_problems(problems)]
+    solo_args = [[torch.from_numpy(a).to(dev) for a in p] for p in problems]
+    runs = []
+    for _ in range(2):
+        t0 = time.time()
+        st, syncs = _sync_calls(torch, lambda: bundle_adjust_batch(*stacked, **kw))
+        torch.cuda.synchronize()
+        runs.append((st, syncs, time.time() - t0))
+    # the second run's count: the first one's includes the card's one-time set-up
+    (st, first_syncs, batch_s), (st2, syncs, _) = runs
+    same = all(torch.equal(getattr(st, k), getattr(st2, k))
+               for k in ("cams", "points", "cost", "lam", "n_iters"))
+    iters = st.n_iters.tolist()
+    steps = max(iters)
+    t0 = time.time()
+    solos = [_sync_calls(torch, lambda a=a: bundle_adjust(*a, **kw)) for a in solo_args]
+    torch.cuda.synchronize()
+    solo_s = time.time() - t0
+    worst = {"cams": 0.0, "points": 0.0, "cost": 0.0}
+    for b, (p, (s, s_syncs)) in enumerate(zip(problems, solos)):
+        C, P = len(p[0]), len(p[1])
+        worst["cams"] = max(worst["cams"], (st.cams[b, :C] - s.cams).abs().max().item())
+        worst["points"] = max(worst["points"], (st.points[b, :P] - s.points).abs().max().item())
+        worst["cost"] = max(worst["cost"], abs(st.cost[b].item() - s.cost.item())
+                            / max(s.cost.item(), 1e-30))
+        if s.n_iters != iters[b]:
+            _fail(f"local BA (batched): problem {b} took {iters[b]} iterations batched, "
+                  f"{s.n_iters} alone")
+        if s_syncs > s.n_iters + 2:
+            _fail(f"local BA (one by one): problem {b} made {s_syncs} synchronizing calls for "
+                  f"{s.n_iters} LM steps (limit steps + 2)")
+    sizes = [(len(p[0]), len(p[1]), len(p[2])) for p in problems]
+    print(f"local BA (batched vs one by one): {len(problems)} problems (cameras, points, "
+          f"observations) {sizes}; iterations {iters}, the same alone; max difference cameras "
+          f"{worst['cams']:.3g} points {worst['points']:.3g} cost {worst['cost']:.3g} relative "
+          f"(limits 1e-5); two batched runs bit-identical: {'yes' if same else 'no'}; "
+          f"synchronizing calls batched {syncs} for {steps} LM steps (the first run "
+          f"{first_syncs}), one by one "
+          f"{[n for _, n in solos]} for {[s.n_iters for s, _ in solos]}; wall batched "
+          f"{batch_s * 1e3:.1f} ms, one by one {solo_s * 1e3:.1f} ms", flush=True)
+    if not same:
+        _fail("local BA (batched): two runs on the card differ")
+    if max(worst.values()) > 1e-5:
+        _fail(f"local BA (batched): differs from the solves one by one by {worst} (limit 1e-5)")
+    if syncs > steps + 2:
+        _fail(f"local BA (batched): {syncs} synchronizing calls for {steps} LM steps "
+              "(limit steps + 2)")
+
+
+def _run_trace(torch, dev, scene, root: Path) -> None:
+    """cli full from the scene's arrays through the CLI's traced runner (what
+    ``--trace T`` does; the command line needs image files, and the card's
+    machine has no image decoder): T must hold the command's span and the
+    pipeline's four stage spans."""
+    from tpu3d_torch import cli
+    from tpu3d_torch.utils import trace
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    trace._GLOBAL = None
+    path = root / "full_trace.json"
+    cli.traced("full", lambda: cli.full((scene["gray"], scene["rgb"]), str(root / "art"),
+                                        _full_config(scene), device=dev),
+               trace=str(path), device="cuda")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e["name"] for e in events]
+    print("full (trace): spans " + ", ".join(f"{e['name']} {e['dur'] / 1e6:.3f} s {e['args']}"
+                                            for e in events), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    if names != ["extract", "retrieve", "match", "reconstruct", "full"]:
+        _fail(f"full (trace): spans {names}, not the command's and the four stages'")
+
+
 def _run_full(torch, dev, scene) -> dict:
     """reconstruct on the card twice (split descriptor, then fused), each
     with the launch counts set to 0 just before it and read just after.
     Returns the fused run's launches."""
+    from tpu3d_torch import native
     from tpu3d_torch.kernels import LAUNCHES, reset_launches
     from tpu3d_torch.sfm import pipeline as P
+    from tpu3d_torch.utils import dispatch
 
     base = _full_config(scene)
     runs = {}
+    chunk: list = []
     for name, fused in (("split", None), ("fused", True)):
         cfg = dataclasses.replace(base, frontend=dataclasses.replace(base.frontend,
                                                                    fused_descriptor=fused))
@@ -1107,11 +1258,17 @@ def _run_full(torch, dev, scene) -> dict:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launches()
+        dispatch.reset()
+        native.reset_calls()
         t0 = time.time()
-        rec, secs = P.reconstruct((scene["gray"], scene["rgb"]), cfg, verbose=False, device=dev)
+        with _capture_local_ba(chunk if name == "split" else []):
+            rec, secs = P.reconstruct((scene["gray"], scene["rgb"]), cfg, verbose=False,
+                                      device=dev)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(LAUNCHES)
+        counts = dispatch.snapshot()
+        calls = dict(native.CALLS)
         peak = torch.cuda.max_memory_allocated()
         timers = dict(P.LAST_SFM_TIMERS)
         reg = rec.registered
@@ -1128,7 +1285,13 @@ def _run_full(torch, dev, scene) -> dict:
               f"{np.median(rot):.4f} max {rot.max():.4f} deg; peak memory "
               f"{peak / 2**30:.2f} GiB; launches {launches}; registered, points, "
               f"observations and reprojection as PR 5's split run {PR5_FULL_SPLIT}: "
-              f"{'yes' if same else 'no'}", flush=True)
+              f"{'yes' if same else 'no'}; dispatches {counts}; local BA "
+              f"{timers['calls'].get('local_ba', 0)} batched solves of "
+              f"{timers['calls'].get('local_ba_problems', 0)} problems; native track store "
+              f"calls {calls}", flush=True)
+        if min(calls.values()) <= 0:
+            _fail(f"full ({name}): the track store or the engine did not take the native "
+                  f"path (calls {calls})")
         if not np.isfinite(rec.mean_reproj_px) or not np.all(np.isfinite(rec.points)):
             _fail(f"full ({name}): reprojection error or points not finite")
         if len(reg) < TPU3D_CPU_REGISTERED - 1:
@@ -1144,6 +1307,7 @@ def _run_full(torch, dev, scene) -> dict:
         _fail("full (fused): patch_sample_kernel launches not fewer than the split run's "
               f"({fused['patch_sample_kernel']} vs "
               f"{runs['split']['launches']['patch_sample_kernel']})")
+    _check_local_ba_batch(torch, dev, chunk[0] if chunk else [])
     return fused
 
 
@@ -1217,6 +1381,7 @@ def _run_sfm(torch, dev, scene, root: Path) -> None:
     from tpu3d_torch.ba.focal import refine_focal
     from tpu3d_torch.kernels import LAUNCHES, reset_launches
     from tpu3d_torch.sfm import pipeline as P
+    from tpu3d_torch.utils import dispatch
 
     cfg = _full_config(scene)
     images = (scene["gray"], scene["rgb"])
@@ -1268,9 +1433,11 @@ def _run_sfm(torch, dev, scene, root: Path) -> None:
 
     # (b) global mode
     reset_launches()
+    dispatch.reset()
     (grec, gsecs), g_s, g_peak = run(lambda: P.reconstruct(images, cfg, verbose=False,
                                                            mode="global", device=dev))
     glaunches = dict(LAUNCHES)
+    gcounts = dispatch.snapshot()
     timers = dict(P.LAST_SFM_TIMERS)
     reg = grec.registered
     cen, rot = _align(grec.cams, scene["R"][reg], scene["t"][reg])
@@ -1281,7 +1448,10 @@ def _run_sfm(torch, dev, scene, root: Path) -> None:
           f"{grec.mean_reproj_px:.6f} px (limit {MAX_GLOBAL_REPROJ_PX}); camera centre error "
           f"/ spread median {np.median(cen):.3g} max {cen.max():.3g}; rotation error median "
           f"{np.median(rot):.4f} max {rot.max():.4f} deg; peak memory {g_peak:.2f} GiB; "
-          f"engine s {timers}; launches {glaunches}", flush=True)
+          f"engine s {timers}; launches {glaunches}; dispatches {gcounts} "
+          f"({gcounts.get('ba_readback', 0)} BA read-backs over "
+          f"{timers['calls']['global_ba']} global and {timers['calls']['windowed_ba']} windowed "
+          "BA calls and the local BA)", flush=True)
     launched("global", glaunches)
     if len(reg) < TPU3D_CPU_GLOBAL_REGISTERED - 1:
         _fail(f"sfm (global): {len(reg)} cameras registered < {TPU3D_CPU_GLOBAL_REGISTERED} "
@@ -1321,13 +1491,16 @@ def _run_sfm(torch, dev, scene, root: Path) -> None:
         rec.cams, rec.points, rec.obs_cam, rec.obs_point, rec.obs_uv_px,
         np.ones(len(rec.obs_cam), np.float32), fixed)]
     iters = 24
+    dispatch.reset()
     (f, st), f_s, f_peak = run(lambda: refine_focal(*args, focal0=FOCAL_START * f_true,
                                                     iters=iters))
+    readbacks = dispatch.snapshot().get("ba_readback", 0)
     err = abs(f - f_true) / f_true
     print(f"sfm (refine_focal): {len(rec.cams)} cameras, {len(rec.points)} points, "
           f"{len(rec.obs_cam)} observations; start {FOCAL_START * f_true:.3f}, refined "
           f"{f:.4f} against the scene's {f_true:.4f} (error {err:.4%}, limit "
-          f"{MAX_FOCAL_ERR:.0%}); {iters + 4} BA solves in {f_s:.3f} s; final cost "
+          f"{MAX_FOCAL_ERR:.0%}); {iters + 4} BA solves in {f_s:.3f} s, {readbacks} BA "
+          f"read-backs ({readbacks / (iters + 4):.1f} a solve); final cost "
           f"{float(st.cost):.6g}; peak memory {f_peak:.2f} GiB", flush=True)
     if not err <= MAX_FOCAL_ERR:
         _fail(f"sfm (refine_focal): focal {f:.4f} more than {MAX_FOCAL_ERR:.0%} from "
@@ -2830,6 +3003,7 @@ def main(argv=()) -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     print(f"build: {time.time() - t0:.1f} s; " + " | ".join(ptxas), flush=True)
     _build.library()
+    _build_native()
 
     t0 = time.time()
     scene = make_scene()
@@ -2839,6 +3013,7 @@ def main(argv=()) -> int:
     if opts.full:
         _run_full(torch, dev, scene)
         _profile_reconstruct(torch, dev, scene)
+        _run_trace(torch, dev, scene, build / "chip_smoke_trace")
         print(smi[0] if smi else "nvidia-smi: no output", flush=True)
         return 0
     if opts.sfm:
@@ -2920,13 +3095,14 @@ def main(argv=()) -> int:
             # that launches it).
             launches["orient_desc_kernel"] = _run_full(torch, dev, scene)["orient_desc_kernel"]
             _profile_reconstruct(torch, dev, scene)
+            _run_trace(torch, dev, scene, build / "chip_smoke_trace")
             _run_sfm(torch, dev, scene, build / "chip_smoke_sfm")
             _run_sdf(torch, dev, scene, str(build / "chip_smoke_sdf"))
             _run_learned(torch, dev, scene, build / "chip_smoke_learned")
             _run_dist(torch, dev, scene, build / "chip_smoke_dist")
     finally:
-        for root in [*roots.values(), *(build / f"chip_smoke_{k}" for k in ("sfm", "sdf",
-                                                                             "learned", "dist"))]:
+        for root in [*roots.values(), *(build / f"chip_smoke_{k}"
+                                        for k in ("sfm", "sdf", "learned", "dist", "trace"))]:
             shutil.rmtree(root, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]

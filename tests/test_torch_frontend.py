@@ -122,18 +122,24 @@ def test_extract_features_matches_tpu3d(images):
     within 1e-6 of the K-th score; scores within 1e-6; descriptors within
     1e-4 where the positions agree within 3e-5 px (most keypoints), and
     within 5e-4 for every counterpart."""
-    jcfg = JaxFrontendConfig(max_keypoints=K, num_octaves=OCTAVES)
+    assert_frontends_agree(images, JaxFrontendConfig(max_keypoints=K, num_octaves=OCTAVES))
+
+
+def assert_frontends_agree(images, jcfg):
+    """tpu3d's extract_features and the port's under the same config on
+    (n, H, W) uint8 images, held to the tolerances stated above."""
     a = jax_extract(jnp.asarray(images), jcfg)
     cfg = FrontendConfig(**dataclasses.asdict(jcfg))
     b = extract_features(torch.from_numpy(images), cfg, device="cpu")
-    assert b.descriptors.shape == (2, K, 128) and b.keypoints.shape == (2, K, 2)
+    n, k = len(images), jcfg.max_keypoints
+    assert b.descriptors.shape == (n, k, 128) and b.keypoints.shape == (n, k, 2)
     np.testing.assert_array_equal(b.image_size.numpy(), np.asarray(a.image_size))
-    for i in range(2):
+    for i in range(n):
         va, vb = np.asarray(a.valid[i]), b.valid[i].numpy()
         assert va.sum() > 200 and va.sum() == vb.sum()
         pa, pb = np.asarray(a.keypoints_px[i])[va], b.keypoints_px[i].numpy()[vb]
         sa, sb = np.asarray(a.scores[i])[va], b.scores[i].numpy()[vb]
-        kth = _kth_score(sa, K)
+        kth = _kth_score(sa, k)
         dist, j = cKDTree(pa).query(pb)
         far = dist > 1e-2
         assert np.all(np.abs(sb[far] - kth) < 1e-6)

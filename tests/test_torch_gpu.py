@@ -527,12 +527,11 @@ def _orient_desc_case(cuda, gen, K):
     assert bool(((gys - rgy).abs() <= tol)[agree].all())
 
 
-def _ba_problem():
+def _ba_problem(seed=0, C=5, P=400):
     """Five cameras (0 and 1 frozen at their true poses: the scale gauge is
     fixed) and 400 points, perturbed by 0.1 rad / m on three cameras and
     0.2 on the points; arguments of bundle_adjust as numpy arrays."""
-    C, P = 5, 400
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     X = np.stack([rng.uniform(-2, 2, P), rng.uniform(-2, 2, P), rng.uniform(5, 9, P)], -1)
     cams = np.zeros((C, 6))
     cams[:, 3] = np.arange(C) * 0.4 - 0.8
@@ -574,6 +573,38 @@ def test_bundle_adjust_on_the_card(cuda):
     assert abs(gpu.cost.item() - cpu.cost.item()) <= 1e-4 * cpu.cost.item()
     assert (gpu.cams.cpu() - cpu.cams).abs().max().item() <= 1e-4
     assert (gpu.points.cpu() - cpu.points).abs().max().item() <= 1e-4
+
+
+def test_bundle_adjust_batch_on_the_card(cuda):
+    """Three problems of different sizes solved in one batch on the card
+    with the engine's local BA arguments: each takes the iterations it takes
+    alone, cameras and points within 1e-5 and cost within 1e-5 relative of
+    its solve alone; two batched runs give the same bits; and a solve makes
+    at most LM steps + 2 synchronizing calls (the segment widths once, the
+    stop flags once a step: CG never reads back)."""
+    from chip_smoke import _sync_calls
+    from tpu3d_torch.ba.lm import bundle_adjust_batch
+    from tpu3d_torch.sfm.engine import stack_ba_problems
+
+    kw = dict(max_iters=10, cg_iters=8, stall_tol=1e-4)
+    problems = [_ba_problem(s, C, P) for s, C, P in ((0, 5, 400), (1, 4, 250), (2, 3, 120))]
+    problems = [a + [np.zeros(len(a[1]), np.float32)] for a in problems]
+    stacked = [torch.from_numpy(a).to(cuda) for a in stack_ba_problems(problems)]
+    runs = [_sync_calls(torch, lambda: bundle_adjust_batch(*stacked, **kw)) for _ in range(2)]
+    (st, _), (st2, syncs) = runs          # the first run's count has one-time set-up
+    for name in ("cams", "points", "cost", "lam", "n_iters"):
+        assert torch.equal(getattr(st, name), getattr(st2, name)), name
+    iters = st.n_iters.tolist()
+    assert syncs <= max(iters) + 2
+    for b, p in enumerate(problems):
+        args = [torch.from_numpy(a).to(cuda) for a in p]
+        s, s_syncs = _sync_calls(torch, lambda: bundle_adjust(*args, **kw))
+        C, P = len(p[0]), len(p[1])
+        assert s.n_iters == iters[b]
+        assert s_syncs <= s.n_iters + 2
+        assert (st.cams[b, :C] - s.cams).abs().max().item() <= 1e-5
+        assert (st.points[b, :P] - s.points).abs().max().item() <= 1e-5
+        assert abs(st.cost[b].item() - s.cost.item()) <= 1e-5 * s.cost.item()
 
 
 def _small_scene():

@@ -77,19 +77,32 @@ def test_view_graph_and_pair_order_identical(rng):
 
 
 def test_tracks_identical(rng):
+    """The port's store against tpu3d's on the same pairs, path for path:
+    the Python union-find against tpu3d's Python one, and the native loops
+    against tpu3d's native library (their union_pair ids, before resolve,
+    differ from the Python path's in transient merge states, tests/
+    test_native.py), where both libraries build."""
+    from tpu3d import native as jax_native
+    from tpu3d_torch import native
+
     n_img, K = 5, 40
-    a, b = JaxTrackStore(n_img, K, capacity=500, use_native=False), TrackStore(n_img, K, capacity=500)
+    steps = []
     for _ in range(30):
         i, j = rng.choice(n_img, 2, replace=False)
         m = int(rng.integers(1, 15))
-        i0 = rng.choice(K, m, replace=False)
-        i1 = rng.choice(K, m, replace=False)
-        assert b.overlap_fraction(i, j, i0, i1) == a.overlap_fraction(i, j, i0, i1)
-        np.testing.assert_array_equal(b.union_pair(i, j, i0, i1), a.union_pair(i, j, i0, i1))
-    np.testing.assert_array_equal(b.kp_track, a.kp_track)
-    assert b.next_track == a.next_track
-    ids = np.arange(b.next_track)
-    np.testing.assert_array_equal(b.resolve(ids), a.resolve(ids))
+        steps.append((i, j, rng.choice(K, m, replace=False), rng.choice(K, m, replace=False)))
+    paths = [False] + ([True] if native.available() and jax_native.available() else [])
+    for use_native in paths:
+        a = JaxTrackStore(n_img, K, capacity=500, use_native=use_native)
+        b = TrackStore(n_img, K, capacity=500, use_native=use_native)
+        assert (a._native is not None) == b._native == use_native
+        for i, j, i0, i1 in steps:
+            assert b.overlap_fraction(i, j, i0, i1) == a.overlap_fraction(i, j, i0, i1)
+            np.testing.assert_array_equal(b.union_pair(i, j, i0, i1), a.union_pair(i, j, i0, i1))
+        np.testing.assert_array_equal(b.kp_track, a.kp_track)
+        assert b.next_track == a.next_track
+        ids = np.arange(b.next_track)
+        np.testing.assert_array_equal(b.resolve(ids), a.resolve(ids))
 
 
 def _pair(seed, n=300):

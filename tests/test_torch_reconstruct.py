@@ -18,6 +18,7 @@ import torch
 
 import tpu3d.sfm.pipeline as JP
 import tpu3d_torch.sfm.pipeline as TP
+from tests.test_torch_frontend import assert_frontends_agree
 from tests.test_torch_slice import _scene_on_disk, _tpu3d_slice
 from tpu3d.ba import bundle_adjust as jax_bundle_adjust
 from tpu3d.ba.residuals import _observation_jacobians_jacfwd
@@ -304,8 +305,9 @@ def test_seg_sum_matches_index_add(case):
     """BA's fixed-order segment sums against index_add_ on the CPU: within
     1e-6 of the sum of |x| over each segment (the two add in different
     orders), exact zeros for segments that nothing lands on, for vector
-    and block-valued rows. Two calls give the same bits."""
-    from tpu3d_torch.ba.lm import _seg_sum, _segments
+    and block-valued rows. Two calls give the same bits, and so do rows
+    padded to four times the width (what a wider batch gives a problem)."""
+    from tpu3d_torch.ba.lm import _pow4, _seg_sum, _segments
 
     rng = np.random.default_rng(11)
     num = 40
@@ -319,7 +321,9 @@ def test_seg_sum_matches_index_add(case):
         idx = np.zeros(0, np.int64)
     idx = torch.from_numpy(idx.astype(np.int64))
     rows = _segments(idx, num)
-    assert rows.shape == (num, int(torch.bincount(idx, minlength=num).max()) if len(idx) else 0)
+    assert rows.shape == (num, _pow4(torch.bincount(idx, minlength=num).max()
+                                     if len(idx) else 0))
+    wide = torch.cat([rows] + [torch.full_like(rows, len(idx))] * 3, 1)
     for shape in ((len(idx),), (len(idx), 6), (len(idx), 6, 6)):
         x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
         got = _seg_sum(x, rows)
@@ -329,6 +333,7 @@ def test_seg_sum_matches_index_add(case):
         assert bool(((got - ref).abs() <= 1e-6 * scale).all())
         assert bool((got[scale == 0] == 0).all())
         assert torch.equal(got, _seg_sum(x, rows))
+        assert torch.equal(got, _seg_sum(x, wide))
 
 
 def test_bundle_adjust_card_problem_has_clear_steps():
@@ -536,8 +541,8 @@ def test_reconstruct_global_end_to_end(sfm_scene, tpu3d_sfm):
 
 def test_unported_options_raise(sfm_scene, tmp_path, capsys):
     """What the port still refuses: densify --mesh with --detail-only (as
-    tpu3d), and approximate top-k retrieval, naming its ROADMAP item (12).
-    The options it once
+    tpu3d), and a top-k recall target outside [0, 1]; approximate top-k at
+    recall 0.95 gives tpu3d's keypoint sets. The options it once
     refused now run: full --frontend disk, extract --frontend superpoint
     and match --matcher lightglue (item 9; seeded random weights from
     tpu3d's inits), and densify --model sdf (item 7d) on full's
@@ -551,13 +556,18 @@ def test_unported_options_raise(sfm_scene, tmp_path, capsys):
     common = ["--images", sfm_scene["dir"], "--artifacts", str(tmp_path), "--device", "cpu"]
     with pytest.raises(SystemExit):
         cli.main(["densify", *common, "--mesh", "auto", "--detail-only"])
+    # approx_topk_recall = 0.95 (tpu3d's lax.approx_max_k, which XLA lowers
+    # to the exact top-k off the TPU; the port always takes the exact one):
+    # two of the scene's views give tpu3d's keypoint sets, to
+    # test_torch_frontend's tolerances. Out of [0, 1] it is refused.
+    gray = sfm_scene["gray"][:2]
+    assert_frontends_agree(gray, dataclasses.replace(sfm_scene["jcfg"].frontend,
+                                                     approx_topk_recall=0.95))
     cfg = sfm_scene["cfg"]
-    approx = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
-                                                                   approx_topk_recall=0.95))
-    gray = np.zeros((2, 64, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TP.run_extraction((gray, np.zeros((2, 64, 64, 3), np.uint8)), approx, verbose=False,
-                          device="cpu")
+    bad = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                approx_topk_recall=1.5))
+    with pytest.raises(ValueError, match="recall"):
+        TP.run_extraction((gray, sfm_scene["rgb"][:2]), bad, verbose=False, device="cpu")
 
     def weights(name, module, *shapes):
         key = jax.random.PRNGKey(0)
@@ -636,8 +646,15 @@ def staged_cli(sfm_scene, tmp_path_factory):
     code, stdout, _ = _run_cli(["export", *_cli_common(sfm_scene, art)])
     assert code == 0
     out["export"] = json.loads(stdout.strip().splitlines()[-1])
-    code, stdout, _ = _run_cli(["full", *_cli_common(sfm_scene, root / "full")])
+    from tpu3d_torch.utils import trace
+
+    trace._GLOBAL = None                  # the spans of this command alone
+    code, stdout, stderr = _run_cli(["full", *_cli_common(sfm_scene, root / "full"),
+                                     "--trace", str(root / "full_trace.json")])
     out["full"] = json.loads(stdout.strip().splitlines()[-1])
+    out["full_stdout"], out["full_stderr"] = stdout, stderr
+    with open(root / "full_trace.json") as f:
+        out["full_trace"] = json.load(f)
     return out
 
 
@@ -682,6 +699,62 @@ def test_cli_staged_commands(sfm_scene, tpu3d_sfm, staged_cli):
     assert set(staged_cli["export"]["written"]) == {
         "img_list.txt", "all_points/descriptors/colors, img_size", "bow_codebook.plk",
         "img_pairs/all_matches", "reconstructed_img/cameras_extrinsic/points_3d/result.ply"}
+
+
+def test_cli_trace_and_dispatches_match_tpu3d(sfm_scene, tpu3d_sfm, staged_cli, monkeypatch,
+                                              tmp_path):
+    """``full --trace T``: T holds the command's span and the pipeline's
+    four stage spans, with the names, order and metadata that tpu3d's
+    ``main`` writes for the same command (run here with its stages stubbed
+    by its own results on the scene: the spans are what is compared), and
+    stderr ends with the summary's ``spans`` and ``counters``. The
+    ``dispatches:`` line counts the host's waits at tpu3d's sites, and the
+    port's BA read-backs. ``extract --xprof DIR`` leaves a torch.profiler
+    trace in DIR."""
+    import contextlib
+    import io
+
+    from tpu3d import cli as jax_cli
+    from tpu3d.utils import trace as jax_trace
+
+    events = staged_cli["full_trace"]["traceEvents"]
+    summary = json.loads(staged_cli["full_stderr"].strip().splitlines()[-1])
+    assert set(summary) == {"spans", "counters"}
+    assert set(summary["spans"]) == {"full", "extract", "retrieve", "match", "reconstruct"}
+    line = [ln for ln in staged_cli["full_stdout"].splitlines() if ln.startswith("dispatches: ")]
+    counts = json.loads(line[0][len("dispatches: "):])
+    assert set(counts) <= {"pnp_chunk", "pnp_single", "triangulate", "local_ba",
+                           "gba_mask_fetch", "gba_commit", "extract_batch",
+                           "extract_bulk_fetch", "retrieve", "match_block", "match_single",
+                           "ba_readback"}
+    assert {"extract_batch", "retrieve", "local_ba", "gba_commit", "ba_readback"} <= set(counts)
+
+    # tpu3d's main on the same command, its stages returning its results
+    feats, rec = tpu3d_sfm["feats"], tpu3d_sfm["rec"]
+    monkeypatch.setenv("TPU3D_COMPILE_CACHE", "")
+    monkeypatch.setattr(JP, "prewarm_gate_async", lambda *a, **k: None)
+    monkeypatch.setattr(JP, "run_extraction", lambda *a, **k: feats)
+    monkeypatch.setattr(JP, "run_retrieval", lambda *a, **k: tpu3d_sfm["adj"])
+    monkeypatch.setattr(JP, "run_matching", lambda *a, **k: (tpu3d_sfm["regs"], None))
+    monkeypatch.setattr(JP, "run_reconstruction", lambda *a, **k: rec)
+    monkeypatch.setattr(jax_trace, "_GLOBAL", None)
+    path = tmp_path / "tpu3d_trace.json"
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        jax_cli.main(["full", "--images", sfm_scene["dir"], "--artifacts", str(tmp_path / "a"),
+                      "--focal", str(sfm_scene["focal"]), "--quiet", "--trace", str(path)])
+    with open(path) as f:
+        ref = json.load(f)["traceEvents"]
+    assert [(e["name"], e["args"]) for e in events] == [(e["name"], e["args"]) for e in ref]
+    assert [e["name"] for e in events] == ["extract", "retrieve", "match", "reconstruct", "full"]
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events)
+
+    xdir = tmp_path / "xprof"
+    code, _, _ = _run_cli(["extract", *_cli_common(sfm_scene, tmp_path / "x"), "--limit", "2",
+                           "--xprof", str(xdir)])
+    assert code == 0
+    (tr,) = xdir.iterdir()
+    with open(tr) as f:
+        assert json.load(f)["traceEvents"]
 
 
 def _same_npy(a, b):

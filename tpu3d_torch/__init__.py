@@ -14,7 +14,9 @@ reconstruct, and the dense stage's training and render/eval) are CUDA C++
 a CPU tensor their wrappers use the plain PyTorch version of the same
 function. The learned models (DISK, SuperPoint, LightGlue) are plain jnp /
 Flax in tpu3d, so here they are torch modules (cuDNN convolutions and
-full-f32 products inside ``f32_scope``).
+full-f32 products inside ``f32_scope``). ``utils`` holds the trace spans
+and the dispatch counts; ``native`` the C++ track store, host code built
+by g++ at first use.
 """
 from __future__ import annotations
 

@@ -29,10 +29,19 @@ def _residual_one(cam: torch.Tensor, X: torch.Tensor, uv: torch.Tensor,
     return (Xc[:2] / _safe_z(Xc[2]) - uv) * w
 
 
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M (..., a, b) times v (..., b): an elementwise product summed over
+    its last axis. cuBLAS's batched matrix-vector kernels round a row
+    differently with the batch's size; this reduction's order depends on
+    the length of the summed axis alone, so a bundle adjustment solved in a
+    batch gives the bits it gives alone."""
+    return (M * v[..., None, :]).sum(-1)
+
+
 def reprojection_residuals(cams, points, cam_idx, pt_idx, uv, w) -> torch.Tensor:
     """(O, 2) masked residuals."""
     R = so3_exp(cams[:, :3])[cam_idx]
-    Xc = torch.einsum("oij,oj->oi", R, points[pt_idx]) + cams[cam_idx, 3:6]
+    Xc = _mv(R, points[pt_idx]) + cams[cam_idx, 3:6]
     return (Xc[:, :2] / _safe_z(Xc[:, 2:3]) - uv) * w[:, None]
 
 
@@ -47,7 +56,7 @@ def observation_jacobians(cams, points, cam_idx, pt_idx, uv, w
     R = so3_exp(cams[:, :3])[cam_idx]
     dR = so3_exp_jacobian(cams[:, :3])[cam_idx]                 # (O, 3, 3, 3)
     X = points[pt_idx]
-    Xc = torch.einsum("oij,oj->oi", R, X) + cams[cam_idx, 3:6]
+    Xc = _mv(R, X) + cams[cam_idx, 3:6]
     z_safe = _safe_z(Xc[:, 2])
     r = (Xc[:, :2] / z_safe[:, None] - uv) * w[:, None]
     inv_z = 1.0 / z_safe
@@ -55,7 +64,7 @@ def observation_jacobians(cams, points, cam_idx, pt_idx, uv, w
     dp = torch.stack([torch.stack([inv_z, zero, -Xc[:, 0] * inv_z * inv_z], -1),
                       torch.stack([zero, inv_z, -Xc[:, 1] * inv_z * inv_z], -1)], -2)
     dp = dp * w[:, None, None]
-    Jp = torch.einsum("oia,oaj->oij", dp, R)
-    dXc = torch.einsum("oajk,oj->oak", dR, X)
-    Jc = torch.cat([torch.einsum("oia,oak->oik", dp, dXc), dp], dim=-1)
+    Jp = _mv(R.transpose(-1, -2)[:, None], dp)                                  # dp R
+    dXc = _mv(dR.transpose(-1, -2), X[:, None, :])                              # [a, k]
+    Jc = torch.cat([_mv(dXc.transpose(-1, -2)[:, None], dp), dp], dim=-1)
     return r, Jc, Jp

@@ -66,9 +66,15 @@ sequential edges while the others extract (``prematch.npz``, which
 ``match`` and ``reconstruct`` consume under the same gating config);
 ``densify --mesh auto|DxM`` trains on the ray-DP x voxel-brick-TP mesh.
 
-Not ported: tpu3d's XLA compile cache and dispatch counts (XLA machinery),
-``--trace`` / ``--xprof``, and the native trackstore (ROADMAP Queue 1 item
-12).
+Tracing: ``--trace PATH`` runs the command inside a span named after it
+(the pipeline's stages inside it) and writes the spans as a Chrome trace to
+PATH, with their summary (``spans``, ``counters``) on stderr;
+``--xprof DIR`` runs the command under torch.profiler (CPU activity, and
+CUDA activity on the card) and writes its Chrome trace into DIR. The sparse
+commands print tpu3d's ``dispatches: {...}`` line, the counts of
+utils/dispatch.py: the host's waits for the card, per site.
+
+Not ported: tpu3d's XLA compile cache (XLA machinery).
 """
 from __future__ import annotations
 
@@ -970,6 +976,7 @@ def _features_meta(args) -> dict:
 def _cmd_full(args) -> None:
     out = full(args.images, args.artifacts, build_config(args), _image_names(args),
                args.downscale, args.ply, args.mode, verbose=not args.quiet, device=args.device)
+    _print_dispatches()
     print(json.dumps(out))
 
 
@@ -980,6 +987,7 @@ def _cmd_extract(args) -> None:
     if out.get("rank", 0) == 0:
         print(f"extracted {out['images']} images in {out['seconds']:.1f}s -> "
               f"{args.artifacts}/features.npz")
+    _print_dispatches()
     print(json.dumps(out))
 
 
@@ -987,6 +995,7 @@ def _cmd_match(args) -> None:
     out = match(args.artifacts, _rescaled_config(args, _features_meta(args)),
                 verbose=not args.quiet, device=args.device)
     print(f"matched {out['images']} images / {out['edges']} edges in {out['seconds']:.1f}s")
+    _print_dispatches()
     print(json.dumps(out))
 
 
@@ -998,6 +1007,7 @@ def _cmd_reconstruct(args) -> None:
     except FileNotFoundError as e:
         print(e, file=sys.stderr)
         sys.exit(1)
+    _print_dispatches()
     print(json.dumps(out))
 
 
@@ -1239,10 +1249,60 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="", help="render: PNG directory (default ARTIFACTS/renders); "
                    "export: destination (default ARTIFACTS/output); mesh: PLY path (default "
                    "ARTIFACTS/mesh.ply); ingest: .npz path (default the checkpoint's)")
+    p.add_argument("--trace", default="",
+                   help="write a Chrome-trace JSON of the command's and its stages' spans "
+                        "(chrome://tracing or Perfetto) and print a span summary to stderr "
+                        "(utils/trace.py)")
+    p.add_argument("--xprof", default="",
+                   help="run the command under torch.profiler (CPU, and CUDA on the card) and "
+                        "write its Chrome trace into this directory")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--cpu", dest="device", action="store_const", const="cpu",
                    help="the same as --device cpu")
     return p
+
+
+def _print_dispatches() -> None:
+    """The host's waits for the card per site during the command just run
+    (utils/dispatch.py), in tpu3d's format."""
+    from tpu3d_torch.utils.dispatch import snapshot
+
+    s = snapshot()
+    if s:
+        print("dispatches: " + json.dumps(s))
+
+
+def traced(command: str, fn, trace: str = "", xprof: str = "", device="cuda"):
+    """Run ``fn()`` inside a span named ``command`` (the pipeline's stage
+    spans nest in it); with ``xprof`` under torch.profiler (CPU activity,
+    and CUDA activity when ``device`` is the card), its Chrome trace written
+    into that directory; with ``trace`` the spans written to that path as a
+    Chrome trace and their summary printed to stderr. Returns fn's result."""
+    from tpu3d_torch.utils.trace import get_tracer
+
+    prof = None
+    if xprof:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+    try:
+        with get_tracer().span(command):
+            return fn()
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(xprof, exist_ok=True)
+            path = os.path.join(xprof, f"{command}.pt.trace.json")
+            prof.export_chrome_trace(path)
+            print(f"device trace written to {path}", file=sys.stderr)
+        if trace:
+            tr = get_tracer()
+            tr.export_chrome_trace(trace)
+            print(json.dumps(tr.summary()), file=sys.stderr)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -1255,8 +1315,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         from tpu3d_torch.dist.runtime import join_process_group
 
         joined = join_process_group(args.distributed, device=args.device)
+    from tpu3d_torch.utils import dispatch
+
+    dispatch.reset()
     try:
-        _COMMANDS[args.command](args)
+        traced(args.command, lambda: _COMMANDS[args.command](args), args.trace, args.xprof,
+               args.device)
     finally:
         if joined:
             import torch.distributed as dist

@@ -46,3 +46,13 @@ def project(X: torch.Tensor, focal) -> torch.Tensor:
 def camera_center(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """World-space camera center C = -Rᵀ t of a world->cam [R|t]."""
     return -torch.einsum("...ji,...j->...i", R, t)
+
+
+def camera_rays(R: torch.Tensor, t: torch.Tensor, uv: torch.Tensor, focal):
+    """World-space rays through centered image coords ``uv`` (..., N, 2):
+    (origins (..., 3), unit directions (..., N, 3)); the pixel direction
+    (u / f, v / f, 1) rotated to the world by Rᵀ."""
+    d_cam = torch.cat([uv / focal, torch.ones_like(uv[..., :1])], dim=-1)
+    d_world = torch.einsum("...ji,...nj->...ni", R, d_cam)
+    d_world = d_world / torch.linalg.vector_norm(d_world, dim=-1, keepdim=True)
+    return camera_center(R, t), d_world

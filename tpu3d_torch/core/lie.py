@@ -106,6 +106,11 @@ def se3_apply(R: torch.Tensor, t: torch.Tensor, X: torch.Tensor) -> torch.Tensor
     return torch.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
 
 
+def se3_compose(R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor, t2: torch.Tensor):
+    """(R1, t1) ∘ (R2, t2): first (R2, t2), then (R1, t1)."""
+    return R1 @ R2, torch.einsum("...ij,...j->...i", R1, t2) + t1
+
+
 def se3_inverse(R: torch.Tensor, t: torch.Tensor):
     Rt = R.transpose(-1, -2)
     return Rt, -torch.einsum("...ij,...j->...i", Rt, t)

@@ -2,9 +2,10 @@
 (X, Y, Z, 28) grid of 1 density + 27 SH channels, queried by trilinear
 interpolation, plus the carry-over of tpu3d's saved grids.
 
-``trilinear_sample`` here is the plain version (the definition); the render
-path samples through ``tpu3d_torch.kernels.trilinear.trilinear_sample``,
-which launches the CUDA kernel on the card.
+``trilinear_sample`` is tpu3d's gather path (tpu3d/dense/grid.py:98):
+(values, in_bounds), through ``trilinear_kernel`` on the card and its plain
+version (``kernels.trilinear.trilinear_sample_plain``, the definition) on
+the CPU.
 """
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import resolve_device
-from tpu3d_torch.kernels import trilinear as _tri
-from tpu3d_torch.kernels.trilinear import trilinear_sample_plain as trilinear_sample
+from tpu3d_torch.kernels.trilinear import trilinear_sample
 
 __all__ = ["VoxelGrid", "create_grid", "resample_grid", "trilinear_sample", "eval_sh", "query",
            "grid_from_tpu3d", "grid_from_mesh_grid", "grid_tensor", "unpack_grid"]
@@ -100,7 +100,7 @@ def query(vg: VoxelGrid, pts: torch.Tensor, dirs: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sigma (N,), rgb (N, 3)) at world points with view directions;
     density = relu(channel 0). Samples through the kernel wrapper."""
-    vals, in_bounds = _tri.trilinear_sample(vg.grid, vg.min_bound, vg.max_bound, pts)
+    vals, in_bounds = trilinear_sample(vg.grid, vg.min_bound, vg.max_bound, pts)
     sigma = torch.relu(vals[:, 0]) * in_bounds
     k = vals[:, 1:].reshape(*vals.shape[:-1], 3, 9)
     rgb = eval_sh(k, dirs) * in_bounds[:, None]

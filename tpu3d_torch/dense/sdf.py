@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from tpu3d_torch.dense.grid import VoxelGrid, eval_sh
-from tpu3d_torch.dense.grid import trilinear_sample as trilinear_plain
 from tpu3d_torch.kernels.trilinear import trilinear_sample
+from tpu3d_torch.kernels.trilinear import trilinear_sample_plain as trilinear_plain
 from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
 
 

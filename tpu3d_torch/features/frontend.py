@@ -137,13 +137,15 @@ def extract_features(images, config: Optional[FrontendConfig] = None,
     ``patch_precision``/``orient_precision`` are accepted in the config and
     ignored: they select MXU passes on the TPU, and the port always samples
     in exact f32. ``fused_descriptor=True`` takes the fused orientation +
-    descriptor pass (``orient_desc_kernel`` on the card);
-    ``approx_topk_recall`` is not ported and raises."""
+    descriptor pass (``orient_desc_kernel`` on the card).
+    ``approx_topk_recall`` in (0, 1] asks tpu3d's ``lax.approx_max_k`` for
+    at least that recall; the port's detector always takes the exact top-k,
+    whose recall is 1 (off the TPU, XLA lowers approx_max_k to the exact
+    top-k too)."""
     cfg = config or FrontendConfig()
-    if cfg.approx_topk_recall > 0.0:
-        raise NotImplementedError("approx_topk_recall > 0 (lax.approx_max_k) is not "
-                                  "ported (ROADMAP Queue 1 item 12); the port's detector "
-                                  "takes the exact top-k")
+    if not 0.0 <= cfg.approx_topk_recall <= 1.0:
+        raise ValueError(f"approx_topk_recall {cfg.approx_topk_recall}: a recall target "
+                         "in (0, 1], or 0 for the exact top-k")
     dev = resolve_device(device)
     images = torch.as_tensor(images).to(dev)
     if images.dtype == torch.uint8:

@@ -50,3 +50,14 @@ def load_images(
     else:
         results = [_load_one(n) for n in names]
     return np.stack([g for g, _ in results]), np.stack([c for _, c in results])
+
+
+def load_image_batch(img_dir: str, names: Sequence[str], start: int, batch: int,
+                     downscale: int = 1):
+    """One batch of images for streaming extraction: (gray, rgb, names) of
+    names[start:start + batch], or (None, None, []) past the end."""
+    chunk = list(names[start: start + batch])
+    if not chunk:
+        return None, None, []
+    g, c = load_images(img_dir, chunk, downscale)
+    return g, c, chunk

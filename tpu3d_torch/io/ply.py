@@ -43,6 +43,27 @@ def write_ply(path: str, points: np.ndarray, colors_bgr: np.ndarray, scale: floa
     return len(pts)
 
 
+def merge_debug_ply(path: str, clouds, colors=None, scale: float = 1.0) -> int:
+    """Point clouds merged into one PLY with a colour per cloud (the
+    reference's numpy2ply.py: red samples, green SfM cloud). ``clouds`` is a
+    sequence of (N_i, 3) arrays; ``colors`` an optional matching sequence
+    of BGR triples (default: a palette). Unfiltered. Returns the vertex
+    count."""
+    palette = [(0, 0, 255), (0, 255, 0), (255, 0, 0), (0, 255, 255), (255, 0, 255)]
+    pts, cols = [], []
+    for k, c in enumerate(clouds):
+        c = np.asarray(c, np.float32)
+        if len(c) == 0:
+            continue
+        pts.append(c * scale)
+        bgr = colors[k] if colors is not None else palette[k % len(palette)]
+        cols.append(np.tile(np.asarray(bgr, np.uint8), (len(c), 1)))
+    if not pts:
+        return 0
+    return write_ply(path, np.concatenate(pts), np.concatenate(cols), scale=1.0,
+                     apply_filter=False)
+
+
 def write_ply_mesh(path: str, verts: np.ndarray, faces: np.ndarray,
                    vert_colors: np.ndarray | None = None) -> int:
     """ASCII PLY triangle mesh with optional per-vertex RGB in [0, 1], as

@@ -12,3 +12,8 @@ LAUNCHES = {"patch_sample_kernel": 0, "top2_kernel": 0, "trilinear_kernel": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+from tpu3d_torch.kernels.distance import descriptor_top2, mutual_nn  # noqa: E402
+
+__all__ = ["LAUNCHES", "reset_launches", "descriptor_top2", "mutual_nn"]

@@ -118,3 +118,14 @@ def mutual_top2(q: torch.Tensor, k: torch.Tensor, vq: torch.Tensor, vk: torch.Te
     if q.device.type == "cpu":
         return mutual_top2_plain(q, k, vq, vk)
     return _launch("mutual_top2", q, k, vq, vk, columns=True)
+
+
+def mutual_nn(d0: torch.Tensor, d1: torch.Tensor, valid0: torch.Tensor, valid1: torch.Tensor,
+              ratio: float = 0.95):
+    """tpu3d's ``mutual_nn_pallas`` (tpu3d/kernels/distance.py:107): the
+    mutual-NN + ratio-test MatchResult of descriptor sets (K0, D) and
+    (K1, D), or batches of them, from one ``mutual_top2`` (one
+    ``top2_kernel`` launch for both directions on the card)."""
+    from tpu3d_torch.matching.mnn import match_descriptors
+
+    return match_descriptors(d0, d1, valid0, valid1, ratio)

@@ -1,5 +1,6 @@
-"""Global feature-track bookkeeping (numpy copy of tpu3d/matching/tracks.py,
-pure-Python union-find only; tpu3d's native C++ store is not ported yet).
+"""Global feature-track bookkeeping (numpy copy of tpu3d/matching/tracks.py):
+union-find in the native library's C loops (``tpu3d_torch.native``) where it
+built, else in Python.
 
 The reference assigns global 3D point ids to matched keypoints with a
 python double loop (matching.py:161-172) that contains a latent indexing
@@ -20,13 +21,17 @@ from __future__ import annotations
 
 import numpy as np
 
+from tpu3d_torch import native
+
 
 class TrackStore:
-    def __init__(self, num_images: int, kpts_per_image: int, capacity: int = 400_000):
+    def __init__(self, num_images: int, kpts_per_image: int, capacity: int = 400_000,
+                 use_native: bool = True):
         self.kp_track = np.full((num_images, kpts_per_image), -1, np.int64)
         self.parent = np.arange(capacity, dtype=np.int64)
         self.capacity = capacity
         self.next_track = 0
+        self._native = use_native and native.available()
 
     # -- union-find ---------------------------------------------------------
     def _find(self, t: int) -> int:
@@ -39,6 +44,8 @@ class TrackStore:
 
     def resolve(self, ids: np.ndarray) -> np.ndarray:
         """Canonicalize track ids after merges. -1 passes through."""
+        if self._native:
+            return native.resolve(self.parent, np.asarray(ids))
         out = np.asarray(ids).copy()
         for i, t in enumerate(out.ravel()):
             if t >= 0:
@@ -53,6 +60,10 @@ class TrackStore:
         matches). Returns (M,) canonical track ids for each match."""
         idx0 = np.asarray(idx0, np.int64)
         idx1 = np.asarray(idx1, np.int64)
+        if self._native:
+            out, self.next_track = native.union_pair(
+                self.parent, self.kp_track, img0, img1, idx0, idx1, self.next_track)
+            return out
         t0 = self.resolve(self.kp_track[img0, idx0])
         t1 = self.resolve(self.kp_track[img1, idx1])
 

@@ -6,15 +6,18 @@ step's solves are batched tensor programs on the engine's device:
 
   per chunk of images: PnP-RANSAC over the union of known tracks of every
               reference edge, then per-edge DLT + GN triangulation with
-              cheirality and reprojection gates (one batched step), then a
-              local Schur-LM BA of each new camera and its new points;
+              cheirality and reprojection gates (one batched step), then the
+              local Schur-LM BAs of the new cameras and their new points,
+              all of the chunk's in one batched solve;
   periodic:   global Schur-LM BA with residual pruning, or a windowed BA
               over the most recent cameras.
 
 The host state (cameras, points, the first-wins observation table) is
-numpy, as tpu3d's. tpu3d pads every device input to fixed capacities so
-that XLA compiles once; the port keeps only the caps that drop data, since
-those change decisions: MAX_REFS reference edges per image, PNP_CAP
+numpy, as tpu3d's; the table's inserts run in the native library's C loop
+(``tpu3d_torch.native``) where it built. tpu3d pads every device input to
+fixed capacities so that XLA compiles once; the port keeps only the caps
+that drop data, since those change decisions: MAX_REFS reference edges per
+image, PNP_CAP
 anchors, BA_CAP_P / BA_CAP_O in the local BA, and the per-edge
 triangulation cap (``set_edge_cap``). The shape ladders, the tunnel's
 device contexts and the register-step forensics are not ported.
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from tpu3d_torch import f32_scope, resolve_device
-from tpu3d_torch.ba.lm import bundle_adjust
+from tpu3d_torch import native
+from tpu3d_torch.ba.lm import bundle_adjust, bundle_adjust_batch
 from tpu3d_torch.ba.residuals import reprojection_residuals
 from tpu3d_torch.config import SfMConfig
 from tpu3d_torch.core.lie import so3_exp, so3_exp_np, so3_log, so3_log_np
@@ -43,6 +47,7 @@ from tpu3d_torch.geometry.pnp import pnp_ransac
 from tpu3d_torch.geometry.ransac import gumbel
 from tpu3d_torch.geometry.triangulate import refine_triangulation_gn, triangulate_dlt
 from tpu3d_torch.sfm.scene import Reconstruction
+from tpu3d_torch.utils.dispatch import tick
 
 PNP_CAP = 4096    # max known-track anchors per image registration
 EDGE_CAP = 2048   # max inlier matches per edge (= keypoint budget)
@@ -145,11 +150,33 @@ def register_step_batch(noise, Xk, uvk, wk, pnp_thr: float, cams_i, uv_r, uv_n, 
 
 def _stack_padded(arrays: Sequence[np.ndarray], n: int) -> np.ndarray:
     """Stack (m_i, ...) arrays into (len, n, ...), zero-padded or cut to n."""
-    out = np.zeros((len(arrays), n, *arrays[0].shape[1:]), np.float32)
+    return _stack_fill(arrays, n, 0, np.float32)
+
+
+def _stack_fill(arrays: Sequence[np.ndarray], n: int, fill, dtype) -> np.ndarray:
+    out = np.full((len(arrays), n, *arrays[0].shape[1:]), fill, dtype)
     for k, a in enumerate(arrays):
         m = min(len(a), n)
         out[k, :m] = a[:m]
     return out
+
+
+def stack_ba_problems(problems: Sequence[tuple]) -> tuple:
+    """Local BA problems (cams0, points0, cam_idx, pt_idx, uv, w, cam_fixed,
+    pt_fixed) of different sizes stacked for :func:`bundle_adjust_batch`,
+    padded to the largest: observations of weight 0 on camera 0 and point 0,
+    frozen cameras and points."""
+    C = max(len(p[0]) for p in problems)
+    P = max(len(p[1]) for p in problems)
+    O = max(len(p[2]) for p in problems)
+    return (_stack_fill([p[0] for p in problems], C, 0, np.float32),
+            _stack_fill([p[1] for p in problems], P, 0, np.float32),
+            _stack_fill([p[2] for p in problems], O, 0, np.int64),
+            _stack_fill([p[3] for p in problems], O, 0, np.int64),
+            _stack_fill([p[4] for p in problems], O, 0, np.float32),
+            _stack_fill([p[5] for p in problems], O, 0, np.float32),
+            _stack_fill([p[6] for p in problems], C, 1, np.float32),
+            _stack_fill([p[7] for p in problems], P, 1, np.float32))
 
 
 class IncrementalSfM:
@@ -175,6 +202,7 @@ class IncrementalSfM:
         self.obs_valid = np.zeros(n_images * K, np.uint8)
         self.obs_track = np.zeros(n_images * K, np.int64)
         self.obs_uv = np.zeros((n_images * K, 2), np.float32)
+        self._native = native.available()
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.num_registered = 0
@@ -214,8 +242,12 @@ class IncrementalSfM:
     def _record_obs(self, img: int, idx: np.ndarray, track: np.ndarray, uv: np.ndarray):
         """First-wins insert into the dense observation table: within the
         batch the first occurrence of a keypoint wins, and occupied slots
-        are kept."""
+        are kept. The native library's loop where it built, else numpy."""
         if len(idx) == 0:
+            return
+        if self._native:
+            native.record_obs(self.obs_valid, self.obs_track, self.obs_uv, self._K, int(img),
+                              idx, track, uv)
             return
         idx = np.asarray(idx, np.int64)
         uniq, first = np.unique(idx, return_index=True)
@@ -232,6 +264,10 @@ class IncrementalSfM:
         return t["pnp"] + t["triangulate"] + t["local_ba"] + t["global_ba"] + t["windowed_ba"]
 
     # ------------------------------------------------------------------
+    def register_pair(self, pair: PairObservations) -> dict:
+        """One matched pair registered as an image with a single edge."""
+        return self.register_image(pair.to_registration())
+
     def register_image(self, reg: ImageRegistration) -> dict:
         t_enter = time.time()
         dev_before = self._device_time()
@@ -262,7 +298,10 @@ class IncrementalSfM:
             for p in preps:
                 p["defer_ba"] = True
             dev = [p for p in preps if p["status"] == "device"]
-            outs = dict(zip(map(id, dev), self._register_step(dev))) if dev else {}
+            outs = {}
+            if dev:
+                outs = dict(zip(map(id, dev), self._register_step(dev)))
+                tick("pnp_chunk")
             for p in preps:
                 infos.append(self._commit_register(p, outs.get(id(p))))
             self._catch_up_triangulation(preps)
@@ -337,12 +376,16 @@ class IncrementalSfM:
                 torch.from_numpy(u1).to(self.device), self.focal, self.cfg.ransac.threshold_px * 2.0)
             X, good = X.cpu().numpy(), good.cpu().numpy()
         self.timers["triangulate"] += time.time() - t0
+        tick("triangulate")
         for k, (jimg, e) in enumerate(catch):
             self._commit_tri_edge(jimg, e, X[k], good[k])
 
     def _register_image(self, reg: ImageRegistration) -> dict:
         prep = self._prepare_register(reg)
-        out = self._register_step([prep])[0] if prep["status"] == "device" else None
+        out = None
+        if prep["status"] == "device":
+            out = self._register_step([prep])[0]
+            tick("pnp_single")
         return self._commit_register(prep, out)
 
     def _prepare_register(self, reg: ImageRegistration) -> dict:
@@ -504,6 +547,7 @@ class IncrementalSfM:
                     f, cfg.ransac.threshold_px * 2.0)
                 X_all, good_all = X_all.cpu().numpy(), good_all.cpu().numpy()
             self.timers["triangulate"] += time.time() - t0
+            tick("triangulate")
         for k, e in enumerate(tri_edges):
             accept, n_new = self._commit_tri_edge(j, e, X_all[k], good_all[k])
             n_new_total += n_new
@@ -688,29 +732,39 @@ class IncrementalSfM:
             if pt_new[s]:
                 self.points[t] = pts_out[s]
 
-    def _solve_local(self, arrays, stall_tol: float):
-        st = bundle_adjust(*(torch.from_numpy(a).to(self.device) for a in arrays),
-                           max_iters=self.cfg.ba.max_iters // 2, cg_iters=8, stall_tol=stall_tol)
-        return st.cams.cpu().numpy(), st.points.cpu().numpy()
-
     def _local_ba(self, j: int, ba_edges) -> None:
         """Camera j and the points just triangulated, with residuals in j
         and every (frozen) reference camera."""
         prep = self._local_ba_prepare(j, ba_edges)
         if prep is not None:
             arrays, track_slot, pt_new = prep
-            self._local_ba_commit(j, *self._solve_local(arrays, 1e-5), track_slot, pt_new)
+            st = bundle_adjust(*(torch.from_numpy(a).to(self.device) for a in arrays),
+                               max_iters=self.cfg.ba.max_iters // 2, cg_iters=8)
+            self._local_ba_commit(j, st.cams.cpu().numpy(), st.points.cpu().numpy(),
+                                  track_slot, pt_new)
 
     def _local_ba_chunk(self, jobs) -> None:
-        """A registration chunk's local BAs: independent problems, solved
-        one after the other (tpu3d vmaps them; its batched solve uses stall
-        tolerance 1e-4, the single one 1e-5)."""
+        """A registration chunk's local BAs in one batched solve (tpu3d's
+        vmapped ``_local_ba_batch``, with its arguments: max_iters // 2, 8
+        CG iterations, stall tolerance 1e-4 where the single solve takes
+        1e-5). The problems are padded to the chunk's largest, not to
+        tpu3d's caps: nothing here compiles per shape, and padding adds
+        work without changing a result."""
         t0 = time.time()
-        for j, ba_edges in jobs:
-            prep = self._local_ba_prepare(j, ba_edges)
-            if prep is not None:
-                arrays, track_slot, pt_new = prep
-                self._local_ba_commit(j, *self._solve_local(arrays, 1e-4), track_slot, pt_new)
+        preps = [(j, p) for j, p in ((j, self._local_ba_prepare(j, e)) for j, e in jobs)
+                 if p is not None]
+        if preps:
+            dev = self.device
+            st = bundle_adjust_batch(
+                *(torch.from_numpy(a).to(dev) for a in stack_ba_problems([p[0] for _, p in preps])),
+                max_iters=self.cfg.ba.max_iters // 2, cg_iters=8, stall_tol=1e-4)
+            cams, pts = st.cams.cpu().numpy(), st.points.cpu().numpy()
+            tick("local_ba")
+            self.counters["local_ba"] = self.counters.get("local_ba", 0) + 1
+            self.counters["local_ba_problems"] = (self.counters.get("local_ba_problems", 0)
+                                                  + len(preps))
+            for b, (j, (_, track_slot, pt_new)) in enumerate(preps):
+                self._local_ba_commit(j, cams[b], pts[b], track_slot, pt_new)
         self.timers["local_ba"] += time.time() - t0
 
     # ------------------------------------------------------------------
@@ -822,6 +876,7 @@ class IncrementalSfM:
         if prune:
             thr_px = 3.0 * self.cfg.ransac.threshold_px
             bad = self._residual_px(st.cams, st.points, cam_idx, pt_idx, uv) > thr_px
+            tick("gba_mask_fetch")
             if bad.any():
                 self.obs_valid[keys[bad]] = 0
                 w[bad] = 0.0
@@ -837,6 +892,7 @@ class IncrementalSfM:
         keep = self.point_valid[uniq_tracks]
         self.points[uniq_tracks[keep]] = st.points.cpu().numpy()[keep]
         self.counters["gba_lm_iters"] = self.counters.get("gba_lm_iters", 0) + st.n_iters
+        tick("gba_commit")
 
     # ------------------------------------------------------------------
     def _residual_px(self, cams, points, cam_idx, pt_idx, uv) -> np.ndarray:

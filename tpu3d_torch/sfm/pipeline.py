@@ -20,7 +20,10 @@ reconstruct, and ``reconstruct`` which runs them all.
 input of ``run_reconstruction``. tpu3d's vmap over a block of pairs is a
 leading pair axis here. Random draws come from ``torch.Generator``s seeded
 per edge from the caller's seed, so an edge's result does not depend on
-which block it rides in.
+which block it rides in. ``reconstruct`` runs each stage inside a span of
+utils/trace.py that waits for the card at both ends (tpu3d's names and
+metadata); each site where the host waits for a result ticks
+utils/dispatch.py under tpu3d's name.
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ from tpu3d_torch.sfm.engine import (MAX_REFS, EdgeObservations, ImageRegistratio
                                     IncrementalSfM, _stack_padded, triangulate_and_gate)
 from tpu3d_torch.sfm.posegraph import pose_graph_init
 from tpu3d_torch.sfm.scene import Reconstruction
+from tpu3d_torch.utils.dispatch import tick
+from tpu3d_torch.utils.trace import trace_span
 
 
 @dataclasses.dataclass
@@ -136,6 +141,7 @@ class SequentialPrematcher:
         while len(self.edges) >= Bm or (final and self.edges):
             blk, self.edges = self.edges[:Bm], self.edges[Bm:]
             flat = _match_and_gate_block(self.feats, blk, PREMATCH_SEED, self.cfg)
+            tick("match_block")
             for b, e in enumerate(blk):
                 self.done[e] = flat[b]
 
@@ -255,6 +261,7 @@ def run_extraction(
         desc.append(fs.descriptors)
         sizes.append(fs.image_size)
         px = fs.keypoints_px.cpu().numpy()
+        tick("extract_batch")
         kp_px.append(px)
         timers["load"] += t1 - t0
         timers["frontend"] += time.time() - t1
@@ -269,9 +276,11 @@ def run_extraction(
         pm.finish(prematch_memo)
     keypoints_dev = torch.cat(kps)
     valid_dev = torch.cat(valid)
+    keypoints = keypoints_dev.cpu().numpy()
+    tick("extract_bulk_fetch")
     return ExtractedFeatures(
         names=list(names),
-        keypoints=keypoints_dev.cpu().numpy(),
+        keypoints=keypoints,
         keypoints_px=np.concatenate(kp_px),
         valid=valid_dev.cpu().numpy(),
         colors_bgr=np.concatenate(colors),
@@ -311,8 +320,9 @@ def run_retrieval(feats: ExtractedFeatures, cfg: PipelineConfig, seed: int = 0,
         idx, sim = _retrieval_fused(d, v, cfg.retrieval.codebook_size,
                                     cfg.retrieval.kmeans_iters, cfg.retrieval.top_k,
                                     fill_idx, init_idx)
-    adj = build_view_graph(idx.cpu().numpy(), sim.cpu().numpy(),
-                           cfg.retrieval.similarity_threshold,
+    idx, sim = idx.cpu().numpy(), sim.cpu().numpy()
+    tick("retrieve")
+    adj = build_view_graph(idx, sim, cfg.retrieval.similarity_threshold,
                            cfg.retrieval.min_neighbors)
     n = len(feats.names)
     for k in range(1, cfg.retrieval.sequential_prior + 1):
@@ -451,6 +461,7 @@ def _batch_match_pairs(feats, pairs, cfg, seed, memo, verbose=False):
     for s in range(0, len(edges), B):
         blk = edges[s: s + B]
         flat = _match_and_gate_block(feats, blk, seed, cfg)
+        tick("match_block")
         for b, e in enumerate(blk):
             memo[e] = flat[b]
         if verbose:
@@ -504,6 +515,7 @@ def _decode_pair(feats, flat, i, j, reverse, cfg):
 def _match_one_pair(feats, i, j, cfg, seed):
     """Match + E-gate one pair in direction (i, j), outside any cache."""
     flat = _match_and_gate_block(feats, [(i, j)], seed, cfg)[0]
+    tick("match_single")
     return _decode_pair(feats, flat, i, j, reverse=False, cfg=cfg)
 
 
@@ -1116,23 +1128,29 @@ def reconstruct(
     match_timers: Dict[str, object] = {}
     t0 = time.time()
     memo: Dict = {}
-    feats = run_extraction(images, cfg, names, downscale, verbose, device=dev, timers=ext_timers,
-                           prematch_memo=memo if cfg.matching.prematch else None)
-    sync()
+    n_names = len(names) if names else -1
+    with trace_span("extract", sync=True, images=n_names):
+        feats = run_extraction(images, cfg, names, downscale, verbose, device=dev,
+                               timers=ext_timers,
+                               prematch_memo=memo if cfg.matching.prematch else None)
+        sync()
     timings["extract"] = time.time() - t0
     t0 = time.time()
-    adj = run_retrieval(feats, cfg, device=dev)
-    sync()
+    with trace_span("retrieve", sync=True):
+        adj = run_retrieval(feats, cfg, device=dev)
+        sync()
     timings["retrieve"] = time.time() - t0
     t0 = time.time()
-    regs, ts = run_matching(feats, adj, cfg, verbose=verbose, device=dev, timers=match_timers,
-                            memo=memo)
-    sync()
+    with trace_span("match", sync=True):
+        regs, ts = run_matching(feats, adj, cfg, verbose=verbose, device=dev,
+                                timers=match_timers, memo=memo)
+        sync()
     timings["match"] = time.time() - t0
     t0 = time.time()
     run = run_global_reconstruction if mode == "global" else run_reconstruction
-    rec = run(feats, regs, ts, cfg, verbose=verbose, adj=adj, device=dev)
-    sync()
+    with trace_span("reconstruct", sync=True, mode=mode):
+        rec = run(feats, regs, ts, cfg, verbose=verbose, adj=adj, device=dev)
+        sync()
     timings["reconstruct"] = time.time() - t0
     timings["total"] = sum(timings.values())
     LAST_EXTRACT_TIMERS.clear()
