@@ -45,10 +45,18 @@ Phases, one line each, any failure exits non-zero:
                (256^3 x 28, 192 samples, batch 2048, Adam) with ray stride 8
                (100 steps), then its held-out evaluation: steps, wall, rays/s
                after the first 10 steps, first and last logged loss, PSNR
-               against tpu3d's on the CPU, peak memory, both kernels'
-               launches; then one training step under torch.profiler: the
-               device time of the forward kernel, the scatter with its fill,
-               the Adam update and the elementwise kernels, and the busy share.
+               against tpu3d's on the CPU, peak memory (allocated and
+               reserved), both kernels' launches (each graph replay credited
+               with its capture's), and how the chunks of 16 steps ran: graph
+               replays (at least one, in every training phase of phases
+               6-8 and 11), eager warm-up chunks, capture seconds; then
+               ``_profile_train_step`` at the same shapes: make_multi_step's
+               graph against the eager loop after two chunks on the same
+               draws (rtol 2e-4 / atol 5e-4), three chunks of each in turns
+               (ms per step, host ms per chunk), and one eager step and one
+               replayed chunk under torch.profiler: the device time of the
+               forward kernel, the scatter with its fill, the Adam update
+               and the elementwise kernels, and the busy share.
   7. recipe  — densify at tpu3d's dense recipe of record (RECIPE_FLAGS:
                contraction at core_q 70, hierarchical 64 + 64 samples,
                256^3 x 28, a coarse 128^3 epoch, two fine epochs, then the
@@ -59,8 +67,8 @@ Phases, one line each, any failure exits non-zero:
                of the base + detail pair against tpu3d's on the CPU; the
                training views scored with the base alone and with the pair
                (the detail phase must raise their PSNR: it lowers its loss
-               by less than its logged single batches differ); one
-               profiled step of each phase;
+               by less than its logged single batches differ); each
+               phase's step through ``_profile_train_step`` (phase 6);
                peak memory; both kernels' launches against the counts the
                steps give.
   8. options — densify --hierarchical --occupancy --camera-gate
@@ -69,7 +77,8 @@ Phases, one line each, any failure exits non-zero:
                them) and occupied share, the gate's probe MSEs and dropped
                cameras, the PSNR, launches; one held-out view rendered with
                and without occupancy pruning (PSNR and wall); then a
-               --rays-pkl run on ray files of the same views at stride 16.
+               --rays-pkl run on ray files of the same views at stride 16,
+               2 epochs.
   9. full    — sfm.pipeline.reconstruct (extract -> retrieve -> match ->
                reconstruct) on the 24 views from arrays, at tpu3d's default
                PipelineConfig with the scene's focal, twice: the split
@@ -107,8 +116,9 @@ Phases, one line each, any failure exits non-zero:
                x 28, 192 samples, batch 2048, Adam) with ray stride 8 (100
                steps), scored with the SDF's training band: steps, rays/s,
                first and last logged loss, PSNR against tpu3d's on the CPU,
-               both kernels' launches against the step counts, peak memory;
-               one profiled SDF step; cli mesh on the saved mesh_grid
+               both kernels' launches against the step counts, peak memory,
+               graph replays; the SDF step through ``_profile_train_step``
+               (phase 6); cli mesh on the saved mesh_grid
                (vertices, faces, iso level, seconds); voxel_traversal on the
                card against the CPU (8,192 rays x 256 steps, indices equal).
  12. learned — the learned frontends and matcher with seeded random weights
@@ -206,11 +216,13 @@ MAX_CASCADE_PSNR_DIFF_DB = 0.104
 # the camera gate after epoch 1, 2 epochs at every 4th pixel (823,284 rays,
 # 401 steps an epoch): tpu3d's default occupancy cadence (500 steps, scan
 # chunks of 16) refreshes the occupancy grid at global step 513. Then a
-# --rays-pkl run on the same views' rays at every 16th pixel, 1 epoch.
+# --rays-pkl run on the same views' rays at every 16th pixel, 2 epochs of 25
+# steps (a chunk of 16 and a tail of 9: each length's first chunk is a
+# CUDA graph's warm-up, so a second epoch is what replays them).
 OPTIONS_FLAGS = dict(hierarchical=True, occupancy=True, camera_gate=True, camera_gate_epoch=1,
                      epochs=2, ray_stride=4)
 OPTIONS_REFRESH_STEP = 513
-RAYS_PKL_STRIDE = 16
+RAYS_PKL_STRIDE, RAYS_PKL_EPOCHS = 16, 2
 # A trilinear row on a grid of more than 2^31 values, which takes the
 # kernel's int64 offsets (what --detail-res 432 would train).
 INT64_RES = 432
@@ -310,6 +322,11 @@ MAX_TP_PSNR_DIFF_DB = 0.1027
 # step's; every rank of a part must finish within DIST_TIMEOUT_S.
 DIST_STEPS = 5
 DIST_TIMEOUT_S = 420
+# make_multi_step's CUDA graph against the eager loop at each profiled
+# step's shapes: two chunks (the graph's warm-up, then a replay) on the same
+# draws within tpu3d's tolerance between its own two routes (the scatter's
+# atomics rule out bit equality); then GRAPH_TURNS chunks of each, in turns.
+GRAPH_RTOL, GRAPH_ATOL, GRAPH_TURNS = 2e-4, 5e-4, 3
 # orient_desc_kernel against its plain version: theta within 1e-5 rad and
 # samples within orient_desc.sample_tolerance (1e-5 x max|g|, plus what the
 # theta difference can move a sample) except at near ties (< 5%).
@@ -1615,7 +1632,7 @@ def _run_train(torch, dev, scene, root) -> dict:
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak_memory(torch)
     log, steps = LAST_TRAIN_AUX["log"], LAST_TRAIN_AUX["steps"]
     at10 = next(e for e in log if e["step"] == TRAIN_LOG_EVERY)
     rays_s = (log[-1]["step"] - at10["step"]) * 2048 / (log[-1]["seconds"] - at10["seconds"])
@@ -1628,8 +1645,9 @@ def _run_train(torch, dev, scene, root) -> dict:
           f"over steps {at10['step']}-{log[-1]['step']}; loss {first:.5f} (step 0) -> "
           f"{last:.5f} (step {log[-1]['step']}); views {out['test_view_names']} PSNR "
           f"{out['test_psnr_per_view']} mean {mean:.4f} dB (tpu3d on the CPU "
-          f"{TPU3D_CPU_TRAIN_PSNR}); peak memory {peak / 2**30:.2f} GiB; launches {launches}",
-          flush=True)
+          f"{TPU3D_CPU_TRAIN_PSNR}); {_chunks(LAST_TRAIN_AUX['phases'][-1])}; peak memory "
+          f"{peak}; launches {launches}", flush=True)
+    _check_replays("train", LAST_TRAIN_AUX["phases"])
     if launches["trilinear_grad_kernel"] != steps:
         _fail(f"trilinear_grad_kernel launched {launches['trilinear_grad_kernel']} times in "
               f"{steps} training steps")
@@ -1646,54 +1664,9 @@ def _run_train(torch, dev, scene, root) -> dict:
     return launches
 
 
-def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=None,
-                        base=None, sdf=False) -> None:
-    """Training steps at the train phase's shapes on a fresh 256^3 state
-    (or a ``res`` grid over ``box``, trained against a cascade ``base``;
-    the SDF step with ``sdf``): 10 timed with CUDA events after 3 warm-ups,
-    then one under torch.profiler, its device time split by kernel family."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tpu3d_torch import f32_scope
-    from tpu3d_torch.dense.grid import create_grid
-    from tpu3d_torch.dense.train import init_state, sdf_train_step, train_step
-
-    s = cfg.scene_scale
-    lo, hi = box or ((-s,) * 3, (s,) * 3)
-    B = cfg.batch_size
-    spe = len(ds.origins) // B
-    state = init_state(cfg, create_grid(res or cfg.grid_resolution, lo, hi, device=dev), spe)
-    o, d, c = (torch.from_numpy(a).to(dev) for a in (ds.origins, ds.dirs, ds.rgb))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-
-    def step(i):
-        sl = slice(i % spe * B, (i % spe + 1) * B)
-        if sdf:
-            return sdf_train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen)
-        return train_step(state, cfg, o[sl], d[sl], c[sl], generator=gen, base=base)
-
-    with f32_scope():
-        for i in range(3):
-            step(i)
-        step_ms = _time_ms(torch, lambda: step(3), 10)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        step(1)
-        host_ms = (time.time() - t1) * 1e3     # enqueue only: no sync inside a step
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.time()
-            step(0)
-            torch.cuda.synchronize()
-            wall = time.time() - t1
-    per_kernel = _device_ms(prof)
-    busy = sum(per_kernel.values())
-    if busy == 0.0:
-        print(f"profile {label}: {step_ms:.3f} ms per step (CUDA events), host enqueue "
-              f"{host_ms:.3f} ms; wall {wall:.3f} s; device time not measured (the profiler "
-              "recorded no CUDA activity)", flush=True)
-        return
+def _step_groups(per_kernel: dict, steps: int) -> dict:
+    """Device ms per step by kernel family, from _device_ms over ``steps``
+    steps."""
     groups = {"trilinear_kernel": 0.0, "trilinear_grad_kernel": 0.0, "fill": 0.0,
               "adam": 0.0, "other": 0.0}
     for name, ms in per_kernel.items():
@@ -1702,16 +1675,148 @@ def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=N
                else "trilinear_kernel" if "trilinear_kernel" in name
                else "adam" if "adam" in low
                else "fill" if "fill" in low or "memset" in low else "other")
-        groups[key] += ms
+        groups[key] += ms / steps
+    return groups
+
+
+def _fmt_groups(groups: dict) -> str:
+    return (f"forward trilinear_kernel {groups['trilinear_kernel']:.3f}, scatter "
+            f"trilinear_grad_kernel {groups['trilinear_grad_kernel']:.3f} + fills "
+            f"{groups['fill']:.3f}, Adam {groups['adam']:.3f}, elementwise and other (RMSprop's "
+            f"update among them) {groups['other']:.3f}")
+
+
+def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=None,
+                        base=None, sdf=False, hold=True) -> None:
+    """Training steps at the train phase's shapes (or a ``res`` grid over
+    ``box``, trained against a cascade ``base``; the SDF step with ``sdf``)
+    on three fresh states from one seed: two stepped by the eager loop (one
+    step call at a time), one by make_multi_step in chunks of
+    cfg.scan_chunk (a CUDA graph: its first chunk is the warm-up, run
+    eagerly, its second captured and replayed).
+
+    - After two chunks, the graph's losses against the eager loop's within
+      GRAPH_RTOL / GRAPH_ATOL, and with ``hold`` its grid and optimizer
+      state too (the scatter's atomics rule out bit equality). Without
+      ``hold`` the state is reported beside the two eager runs' own
+      difference: Adam moves a voxel whose gradient is near its 1e-8
+      epsilon by a share of lr, so under contraction a rounding-sized
+      change of the gradient moves a few voxels by up to ~1e-2.
+    - GRAPH_TURNS chunks of each in turns, eager then graph: ms per step
+      (CUDA events around the chunk) and host ms per chunk (the host clock
+      before the synchronize: the enqueue).
+    - One eager step and one replayed chunk under torch.profiler, the
+      device time per step split by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense.grid import create_grid
+    from tpu3d_torch.dense.train import init_state, make_multi_step, sdf_train_step, train_step
+
+    s = cfg.scene_scale
+    lo, hi = box or ((-s,) * 3, (s,) * 3)
+    B, K = cfg.batch_size, cfg.scan_chunk
+    spe = len(ds.origins) // B
+    step_fn = sdf_train_step if sdf else train_step
+    kw = {} if sdf else {"base": base}
+    o, d, c = (torch.from_numpy(a).to(dev) for a in (ds.origins, ds.dirs, ds.rgb))
+    rows = torch.arange(spe * B, device=dev)
+
+    def block(i):
+        b = i * K % (spe - K + 1)
+        return rows[b * B:(b + K) * B].view(K, B)
+
+    def fresh():
+        st = init_state(cfg, create_grid(res or cfg.grid_resolution, lo, hi, device=dev), spe)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return st, gen
+
+    (eager, e_gen), (again, a_gen), (graph, g_gen) = fresh(), fresh(), fresh()
+    multi = make_multi_step(step_fn, with_occ=not sdf)
+
+    def eager_chunk(i, st=eager, gen=e_gen):
+        return torch.stack([step_fn(st, cfg, o[ix], d[ix], c[ix], generator=gen, **kw)
+                            for ix in block(i)])
+
+    def graph_chunk(i):
+        return multi(graph, cfg, block(i), o, d, c, generator=g_gen, **kw)
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+        return _device_ms(prof), wall
+
+    def state_tensors(st):
+        p = st.grid.grid
+        return [p] + [v for v in st.optimizer.state[p].values() if v.dim()]
+
+    def compare(got, ref):
+        """(max |diff|, elements beyond GRAPH_RTOL / GRAPH_ATOL) over pairs."""
+        return (max((g - r).abs().max().item() for g, r in zip(got, ref)),
+                sum(int((~torch.isclose(g, r, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)).sum())
+                    for g, r in zip(got, ref)))
+
+    with f32_scope():
+        losses = [(graph_chunk(i), eager_chunk(i), eager_chunk(i, again, a_gen))
+                  for i in range(2)]
+        torch.cuda.synchronize()
+        loss_cmp = compare([g for g, _, _ in losses], [e for _, e, _ in losses])
+        state_cmp = compare(state_tensors(graph), state_tensors(eager))
+        floor_cmp = compare(state_tensors(again), state_tensors(eager))
+        n_state = sum(t.numel() for t in state_tensors(eager))
+        del again
+        ms, host = {"graph": [], "eager": []}, {"graph": [], "eager": []}
+        for i in range(2, 2 + GRAPH_TURNS):
+            for name, fn in (("eager", eager_chunk), ("graph", graph_chunk)):
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                t1 = time.perf_counter()
+                fn(i)
+                host[name].append((time.perf_counter() - t1) * 1e3)
+                b.record()
+                b.synchronize()
+                ms[name].append(a.elapsed_time(b) / K)
+        i = 2 + GRAPH_TURNS
+        ix = block(i)[0]
+        per_kernel, wall = profiled(lambda: step_fn(eager, cfg, o[ix], d[ix], c[ix],
+                                                    generator=e_gen, **kw))
+        g_kernel, g_wall = profiled(lambda: graph_chunk(i))
+    replays, captures = multi.replays, multi.capture_seconds
+    multi.release()
+    del eager, graph, multi, losses
+    torch.cuda.empty_cache()
+    busy, g_busy = sum(per_kernel.values()), sum(g_kernel.values())
+    r = lambda xs: [round(x, 3) for x in xs]  # noqa: E731
+    print(f"profile {label}: eager loop {r(ms['eager'])} ms per step, graph replays "
+          f"{r(ms['graph'])} (CUDA events around a chunk of {K}, in turns); host ms per chunk "
+          f"eager {r(host['eager'])}, graph {r(host['graph'])} (enqueue); capture "
+          f"{r(captures)} s; {replays} replays; graph against the eager loop after 2 chunks "
+          f"(limit rtol {GRAPH_RTOL} atol {GRAPH_ATOL}{'' if hold else ' on the losses'}): "
+          f"losses max |diff| {loss_cmp[0]:.3e}, grid and optimizer state {state_cmp[0]:.3e} "
+          f"({state_cmp[1]} of {n_state} beyond); the two eager runs: {floor_cmp[0]:.3e} "
+          f"({floor_cmp[1]} beyond)", flush=True)
+    if loss_cmp[1] or (hold and state_cmp[1]):
+        _fail(f"{label}: the graph's chunks and the eager loop's differ beyond rtol "
+              f"{GRAPH_RTOL} / atol {GRAPH_ATOL}: losses {loss_cmp}, state {state_cmp}")
+    if busy == 0.0 or g_busy == 0.0:
+        print(f"profile {label}: device time not measured (the profiler recorded no CUDA "
+              f"activity: eager {busy}, graph {g_busy})", flush=True)
+        return
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile {label}: {step_ms:.3f} ms per step (CUDA events, 10 steps), host "
-          f"enqueue {host_ms:.3f} ms per step; one step profiled: wall {wall * 1e3:.1f} ms, device busy {busy:.2f} ms "
-          f"({busy / (wall * 1e3):.1%}); device ms: forward trilinear_kernel "
-          f"{groups['trilinear_kernel']:.3f}, scatter trilinear_grad_kernel "
-          f"{groups['trilinear_grad_kernel']:.3f} + fills {groups['fill']:.3f}, Adam "
-          f"{groups['adam']:.3f}, elementwise and other (RMSprop's update among them) "
-          f"{groups['other']:.3f}; top kernels: "
+    print(f"profile {label}: one eager step profiled: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.2f} ms ({busy / (wall * 1e3):.1%}); device ms: "
+          + _fmt_groups(_step_groups(per_kernel, 1)) + "; top kernels: "
           + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top), flush=True)
+    print(f"profile {label} (graph): one replayed chunk of {K} profiled: wall "
+          f"{g_wall * 1e3:.1f} ms, device busy {g_busy:.2f} ms ({g_busy / (g_wall * 1e3):.1%}), "
+          f"{g_busy / K:.3f} ms a step; device ms per step: "
+          + _fmt_groups(_step_groups(g_kernel, K)), flush=True)
 
 
 @contextlib.contextmanager
@@ -1735,16 +1840,38 @@ def _train_calls():
         cli.train_plenoxel = real
 
 
+def _peak_memory(torch) -> str:
+    """The peak device memory since the last reset: allocated, and reserved
+    (the caching allocator's segments, the graphs' pools among them)."""
+    return (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved")
+
+
+def _chunks(phase: dict) -> str:
+    """How a training phase ran its chunks of steps."""
+    return (f"chunks: {phase['replays']} graph replays, {phase['eager_chunks']} eager, "
+            f"captures {[round(x, 3) for x in phase['capture_seconds']]} s")
+
+
+def _check_replays(label: str, phases: list) -> None:
+    """Every training phase replayed a graph at least once: a run that
+    silently steps eagerly fails."""
+    for p in phases:
+        if p["replays"] < 1:
+            _fail(f"{label}: the {p['phase']} phase replayed no graph ({_chunks(p)})")
+
+
 def _phase_summary(phase: dict, batch: int) -> str:
     """One training phase: grid, steps, rays/s between its second and last
-    logged steps (the first pays for warm-up), first and last logged loss."""
+    logged steps (the first pays for warm-up), first and last logged loss,
+    how its chunks ran."""
     log = phase["log"]
     a, b = log[min(1, len(log) - 1)], log[-1]
     rate = ((b["update"] - a["update"]) * batch / (b["seconds"] - a["seconds"])
             if b["update"] > a["update"] else float("nan"))
     return (f"{phase['phase']} {'x'.join(map(str, phase['res']))}: {phase['steps']} steps, "
             f"{rate:.0f} rays/s, loss {log[0]['loss']:.5f} -> {b['loss']:.5f} "
-            f"({phase['seconds']:.3f} s)")
+            f"({phase['seconds']:.3f} s; {_chunks(phase)})")
 
 
 def _check_phases(label: str, phases: list, psnrs, same_rays=None) -> None:
@@ -1753,6 +1880,7 @@ def _check_phases(label: str, phases: list, psnrs, same_rays=None) -> None:
     after)} on one fixed set of its training rays) must raise that PSNR
     instead: its logged losses are single batches, whose spread hides a
     phase that lowers its loss by less than the batches differ."""
+    _check_replays(label, phases)
     same_rays = same_rays or {}
     losses = [e["loss"] for p in phases for e in p["log"]]
     if not np.all(np.isfinite(losses + list(psnrs) + [v for b in same_rays.values() for v in b])):
@@ -1801,7 +1929,7 @@ def _run_recipe(torch, dev, scene, root, cfg, ds) -> dict:
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak_memory(torch)
     phases = calls[0]["phases"] + calls[1]["phases"]
     steps = {p["phase"]: p["steps"] for p in phases}
     store = ArtifactStore(root)
@@ -1839,7 +1967,7 @@ def _run_recipe(torch, dev, scene, root, cfg, ds) -> dict:
           f"pixel): base alone {tr[0]['mean_psnr']:.6f} dB, base + detail "
           f"{tr[1]['mean_psnr']:.6f} ({tr[1]['mean_psnr'] - tr[0]['mean_psnr']:+.6f}; "
           f"{sum(g > 0 for g in tr_gain)} of {len(tr_gain)} views higher); peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches} (derived from the steps {want})",
+          f"{peak}; launches {launches} (derived from the steps {want})",
           flush=True)
     for name, n in want.items():
         if launches[name] != n:
@@ -1858,7 +1986,7 @@ def _run_recipe(torch, dev, scene, root, cfg, ds) -> dict:
             ("coarse", 128, box, "adam", None), ("fine", 256, box, "adam", None),
             ("detail", cd["res"], (cd["min_bound"], cd["max_bound"]), "rmsprop", base)):
         _profile_train_step(torch, dev, dataclasses.replace(cfg, optimizer=optimizer), ds,
-                            f"recipe {label} step", res, phase_box, b)
+                            f"recipe {label} step", res, phase_box, b, hold=label == "detail")
     return launches
 
 
@@ -1889,7 +2017,7 @@ def _run_options(torch, dev, scene, root) -> dict:
     from tpu3d_torch.dense.eval import dataset_from_views, split_views_by_name, view_rays
     from tpu3d_torch.dense.grid import grid_from_tpu3d
     from tpu3d_torch.dense.render import render_image
-    from tpu3d_torch.dense.train import SceneNormalization, psnr
+    from tpu3d_torch.dense.train import LAST_TRAIN_AUX, SceneNormalization, psnr
     from tpu3d_torch.io.artifacts import ArtifactStore
     from tpu3d_torch.io.raydata import save_ray_dataset
     from tpu3d_torch.kernels import LAUNCHES, reset_launches
@@ -1906,7 +2034,7 @@ def _run_options(torch, dev, scene, root) -> dict:
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak_memory(torch)
     aux = calls[0]
     gate, refreshes = aux["camera_gate"], aux["occupancy_refreshes"]
     store = ArtifactStore(root)
@@ -1931,7 +2059,7 @@ def _run_options(torch, dev, scene, root) -> dict:
           f"{gate and [round(m, 5) for m in gate['probe_mse']]} threshold "
           f"{gate and round(gate['threshold'], 5)}, dropped {out['dropped_cameras']}; PSNR "
           f"{out['test_psnr_per_view']} mean {out['test_psnr']:.4f} dB; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches} (derived {want})", flush=True)
+          f"{peak}; launches {launches} (derived {want})", flush=True)
     if gate is None:
         _fail("options: the camera gate did not run")
     if [r["step"] for r in refreshes] != expect or OPTIONS_REFRESH_STEP not in expect:
@@ -1966,12 +2094,16 @@ def _run_options(torch, dev, scene, root) -> dict:
     t1 = time.time()
     rp = densify_from_rays(str(Path(root) / "rays"), str(Path(root) / "train_rays.npy"),
                            test_rays_pkl=str(Path(root) / "test_rays.npy"), near=dm["near"],
-                           far=dm["far"], no_checkpoint=True, device=dev)
+                           far=dm["far"], epochs=RAYS_PKL_EPOCHS, no_checkpoint=True,
+                           device=dev)
+    rp_phases = LAST_TRAIN_AUX["phases"]
     print(f"options: view {names[v]} PSNR unpruned {views[False][0]:.4f} dB in "
           f"{views[False][1]:.3f} s, occupancy-pruned {views[True][0]:.4f} dB in "
-          f"{views[True][1]:.3f} s; --rays-pkl ({len(train.origins)} rays, 1 epoch, "
-          f"{time.time() - t1:.3f} s): loss {rp['final_loss']:.5f}, test PSNR "
-          f"{rp['test_psnr']:.4f} dB over {len(test.origins)} rays", flush=True)
+          f"{views[True][1]:.3f} s; --rays-pkl ({len(train.origins)} rays, {RAYS_PKL_EPOCHS} "
+          f"epochs, {time.time() - t1:.3f} s): loss {rp['final_loss']:.5f}, test PSNR "
+          f"{rp['test_psnr']:.4f} dB over {len(test.origins)} rays; {_chunks(rp_phases[-1])}",
+          flush=True)
+    _check_replays("options (--rays-pkl)", rp_phases)
     if not np.all(np.isfinite([*views[False], *views[True], rp["final_loss"],
                                rp["test_psnr"]])):
         _fail(f"options: the pruned render or the rays-pkl run is not finite: {views}, {rp}")
@@ -2115,7 +2247,7 @@ def _run_sdf(torch, dev, scene, root) -> dict:
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak_memory(torch)
     log, steps = LAST_TRAIN_AUX["log"], LAST_TRAIN_AUX["steps"]
     at10 = next(e for e in log if e["step"] == TRAIN_LOG_EVERY)
     rays_s = (log[-1]["step"] - at10["step"]) * 2048 / (log[-1]["seconds"] - at10["seconds"])
@@ -2127,9 +2259,10 @@ def _run_sdf(torch, dev, scene, root) -> dict:
           f"{first:.5f} (step 0) -> {last:.5f} (step {log[-1]['step']}); views "
           f"{out['test_view_names']} PSNR {out['test_psnr_per_view']} mean {mean:.4f} dB "
           f"(tpu3d's grid on the CPU: {TPU3D_SDF_PORT_SCORED_PSNR} by the port's scorer, limit "
-          f"{MAX_SDF_PSNR_DIFF_DB} dB; {TPU3D_CPU_SDF_PSNR} by tpu3d's); peak "
-          f"memory {peak / 2**30:.2f} GiB; launches {launches} (expected trilinear "
-          f"{steps} + {eval_launches}, scatter {steps})", flush=True)
+          f"{MAX_SDF_PSNR_DIFF_DB} dB; {TPU3D_CPU_SDF_PSNR} by tpu3d's); "
+          f"{_chunks(LAST_TRAIN_AUX['phases'][-1])}; peak memory {peak}; launches {launches} "
+          f"(expected trilinear {steps} + {eval_launches}, scatter {steps})", flush=True)
+    _check_replays("sdf", LAST_TRAIN_AUX["phases"])
     if launches["trilinear_grad_kernel"] != steps:
         _fail(f"sdf: trilinear_grad_kernel launched {launches['trilinear_grad_kernel']} times "
               f"in {steps} steps")

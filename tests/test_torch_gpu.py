@@ -462,6 +462,110 @@ def test_cascade_and_occupancy_steps_on_the_card(cuda, gen, option):
     _assert_steps_agree(states, losses, grid, cfg.optimizer)
 
 
+def test_graph_draws_equal_eager_draws(cuda):
+    """A training step's draws captured in a CUDA graph from a registered
+    generator: two replays give the two next eager draws of a generator
+    seeded alike, bit for bit, and leave it where the eager calls do."""
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.train import draw_step_noise
+    from tpu3d_torch.utils.cuda_graph import capture
+
+    cfg = DenseConfig(hierarchical=True, n_coarse=8, n_fine=8, tv_sigma=0.3,
+                      sparsity_sigma=0.02)
+    eager_gen, graph_gen = torch.Generator(device=cuda), torch.Generator(device=cuda)
+    eager_gen.manual_seed(3)
+    graph_gen.manual_seed(3)
+    shape = (16, 12, 20, 28)
+    eager = [draw_step_noise(cfg, shape, 256, eager_gen, cuda) for _ in range(2)]
+    out = []
+    graph = capture(lambda: out.append(draw_step_noise(cfg, shape, 256, graph_gen, cuda)),
+                    [graph_gen])
+    for want in eager:
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, ref in zip(out[0], want):
+            assert torch.equal(got, ref)
+    after = (torch.rand(8, generator=eager_gen, device=cuda),
+             torch.rand(8, generator=graph_gen, device=cuda))
+    assert torch.equal(*after)
+
+
+@pytest.mark.parametrize("option", ["adam", "cascade", "sdf"])
+def test_multi_step_graph_matches_eager_on_the_card(cuda, gen, option):
+    """make_multi_step on the card against the same steps called one by
+    one, from one seed: chunks of 4 (the first the warm-up, run eagerly;
+    the second captured and replayed; the third replayed) and a tail of 2
+    (eager). Losses, grid, moments and latents within rtol 2e-4 / atol 5e-4
+    (the scatter's atomics add in no fixed order), two replays, and the
+    kernel launches of each replay credited: as many as the eager steps
+    count."""
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    kw = dict(grid_resolution=16, batch_size=256, num_samples=16, near=0.5, far=4.0,
+              n_coarse=8, n_fine=8, scan_chunk=4)
+    grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
+    grid[..., 0] = torch.randn((16, 16, 16), generator=gen, device=cuda) * 2.0
+    lo, hi = torch.full((3,), -1.5, device=cuda), torch.full((3,), 1.5, device=cuda)
+    step_kw, step_fn = {}, TT.train_step
+    if option == "cascade":
+        cfg = DenseConfig(hierarchical=True, optimizer="rmsprop", **kw)
+        step_kw["base"] = VoxelGrid(grid, lo, hi)
+        grid = torch.zeros((8, 16, 16, 28), device=cuda)
+        lo, hi = torch.tensor([-0.6, -0.8, -0.7], device=cuda), torch.tensor([0.9, 0.8, 0.6],
+                                                                              device=cuda)
+    else:
+        cfg = DenseConfig(tv_sigma=0.3, tv_sh=0.05, sparsity_sigma=0.02, exposure=True,
+                          sh_background=True, **kw)
+        step_fn = TT.sdf_train_step if option == "sdf" else TT.train_step
+    n_rays = 14 * 256
+    o = torch.zeros((n_rays, 3), device=cuda)
+    o[:, 0] = -2.0
+    d = torch.nn.functional.normalize(torch.randn((n_rays, 3), generator=gen, device=cuda) * 0.4
+                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
+    rgb = torch.rand((n_rays, 3), generator=gen, device=cuda)
+    cid = torch.randint(0, 4, (n_rays,), generator=gen, device=cuda)
+    perm = torch.randperm(n_rays, generator=gen, device=cuda)
+    states, losses, launched = [], [], []
+    for graphed in (False, True):
+        st = TT.init_state(cfg, VoxelGrid(grid.clone(), lo, hi), 7, 4)
+        g = torch.Generator(device=cuda)
+        g.manual_seed(11)
+        multi = TT.make_multi_step(step_fn, with_occ=option != "sdf")
+        before = (LAUNCHES["trilinear_kernel"], LAUNCHES["trilinear_grad_kernel"])
+        out = []
+        for b, k in ((0, 4), (4, 4), (8, 4), (12, 2)):
+            block = perm[b * 256:(b + k) * 256].view(k, 256)
+            if graphed:
+                out.append(multi(st, cfg, block, o, d, rgb, cid_all=cid, generator=g,
+                                 **step_kw))
+                continue
+            for ix in block:
+                out.append(step_fn(st, cfg, o[ix], d[ix], rgb[ix], cid[ix], generator=g,
+                                   **step_kw)[None])
+        torch.cuda.synchronize()
+        launched.append((LAUNCHES["trilinear_kernel"] - before[0],
+                         LAUNCHES["trilinear_grad_kernel"] - before[1]))
+        states.append(st)
+        losses.append(torch.cat(out).cpu())
+        if graphed:
+            assert (multi.replays, multi.eager_chunks, len(multi.capture_seconds)) == (2, 2, 1)
+            multi.release()
+    assert launched[0] == launched[1] and launched[0][1] == 14
+    assert torch.allclose(losses[1], losses[0], rtol=2e-4, atol=5e-4)
+    a, b = states
+    assert a.step == b.step == int(b.count) == 14
+    pa, pb = a.grid.grid, b.grid.grid
+    pairs = [(pa, pb)] + [(a.optimizer.state[pa][k], b.optimizer.state[pb][k])
+                          for k in a.optimizer.state[pa]]
+    pairs += [(x, y) for x, y in ((a.exposure, b.exposure), (a.background, b.background))
+              if x is not None]
+    for x, y in pairs:
+        assert torch.allclose(y, x, rtol=2e-4, atol=5e-4)
+    assert (pb - grid).abs().max().item() > 1e-3
+
+
 def test_render_image_on_the_card(cuda, gen):
     """render_image through the kernel against the same render on the CPU."""
     from tpu3d_torch.dense.grid import VoxelGrid

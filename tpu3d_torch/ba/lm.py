@@ -58,6 +58,7 @@ import torch.nn.functional as F
 
 from tpu3d_torch import f32_scope
 from tpu3d_torch.ba.residuals import _mv, observation_jacobians, reprojection_residuals
+from tpu3d_torch.utils.cuda_graph import capture
 from tpu3d_torch.utils.dispatch import tick
 
 
@@ -245,20 +246,6 @@ def bundle_adjust_batch(
     return st
 
 
-def _capture(fn) -> "torch.cuda.CUDAGraph":
-    """fn's kernels captured as a CUDA graph (recorded, not run), on a side
-    stream that the current one waits for and that waits for it."""
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        graph.capture_begin()
-        fn()
-        graph.capture_end()
-    torch.cuda.current_stream().wait_stream(side)
-    return graph
-
-
 class _SchurCG:
     """Preconditioned CG on S dc = b for one solve, on (B, C, 6) vectors
     with (B, 1, 1) per-problem scalars, over buffers that last the solve:
@@ -346,7 +333,7 @@ class _SchurCG:
                 continue
             self._iteration()
             if self.graphs:
-                self.graph = _capture(self._iteration)
+                self.graph = capture(self._iteration)
 
 
 @contextlib.contextmanager

@@ -50,7 +50,11 @@ def probe_occupancy(occ: torch.Tensor, min_bound: torch.Tensor, max_bound: torch
     each ray's [t_near, t_far]: (depths (N, P), occupied (N, P) bool);
     probes outside the box are unoccupied."""
     n = rays_o.shape[0]
-    res = torch.tensor(occ.shape, dtype=torch.float32, device=rays_o.device)
+    # filled on the device, not copied from the host: a CUDA graph of a
+    # training step captures this
+    res = torch.empty(3, dtype=torch.float32, device=rays_o.device)
+    for a, r in enumerate(occ.shape):
+        res[a].fill_(r)
     step = (t_far - t_near) / (n_probes - 1)
     ts = t_near[:, None] + step[:, None] * torch.arange(n_probes, dtype=torch.float32,
                                                         device=rays_o.device)[None, :]

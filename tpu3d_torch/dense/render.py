@@ -29,11 +29,30 @@ from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
 _CONTRACT_BG_FAR = 50.0
 
 
+class _CumProd(torch.autograd.Function):
+    """torch.cumprod along the last axis, with the gradient that torch's
+    cumprod_backward computes when no factor is 0, reversed_cumsum(out * g)
+    / x, bit for bit, but without its host read of whether one is 0: a
+    CUDA graph captures the training step (dense/train.py::make_multi_step).
+    The transmittance's factors 1 - alpha + 1e-10 are never 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def composite_weights(sigma: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Per-sample compositing weights w = T * alpha. (N, S) -> (N, S)."""
     delta = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
     alpha = 1.0 - torch.exp(-sigma * delta)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = _CumProd.apply(1.0 - alpha + 1e-10)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
     return trans * alpha
 

@@ -61,7 +61,7 @@ def linspace01(n: int, device=None) -> torch.Tensor:
         return torch.zeros(1, device=device)
     t = torch.arange(n, dtype=torch.float32, device=device) * float(
         torch.tensor(1.0) / (n - 1))
-    t[-1] = 1.0
+    t[-1].fill_(1.0)      # on the device: a CUDA graph of a training step captures this
     return t
 
 

@@ -33,6 +33,8 @@ from tpu3d_torch.dense.occupancy import occupancy_from_grid
 from tpu3d_torch.dense.render import jitter_width, render_rays, render_rays_hierarchical
 from tpu3d_torch.dense.sdf import ray_aabb
 from tpu3d_torch.io.ply import filter_point_cloud
+from tpu3d_torch.kernels import LAUNCHES
+from tpu3d_torch.utils.cuda_graph import capture
 
 
 class RayDataset(NamedTuple):
@@ -172,29 +174,51 @@ def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
 LAST_TRAIN_AUX: Dict[str, object] = {}
 
 
-def _lr_schedule(cfg: DenseConfig, steps_per_epoch: int) -> Callable[[int], float]:
+class LrSchedule(NamedTuple):
     """optax.piecewise_constant_schedule(lr, {m * steps_per_epoch: gamma}):
-    the lr of update k (0-based) is lr * gamma^#{m : m * steps_per_epoch <= k}."""
-    boundaries = {m * steps_per_epoch: cfg.lr_gamma for m in cfg.lr_milestones}
+    the lr of update k (0-based) is lr * gamma^#{m : m * steps_per_epoch <=
+    k}. Called with an int it gives the host's float; :meth:`on_device`
+    gives the same number from a device count, for a step that a CUDA graph
+    replays."""
+    base: float
+    boundaries: Tuple[Tuple[int, float], ...]   # (update count, scale), sorted
 
-    def lr(count: int) -> float:
-        v = cfg.learning_rate
-        for b, scale in sorted(boundaries.items()):
+    def __call__(self, count: int) -> float:
+        v = self.base
+        for b, scale in self.boundaries:
             if count >= b:
                 v *= scale
         return v
 
-    return lr
+    def on_device(self, count: torch.Tensor) -> torch.Tensor:
+        """The lr of update ``count`` (a 0-d integer tensor) as a 0-d f32
+        tensor on its device, without reading it on the host: the host's
+        float64 products, rounded to f32 as Adam rounds a float lr."""
+        v = torch.full((), self.base, dtype=torch.float64, device=count.device)
+        for b, scale in self.boundaries:
+            v = torch.where(count >= b, v * scale, v)
+        return v.float()
+
+
+def _lr_schedule(cfg: DenseConfig, steps_per_epoch: int) -> LrSchedule:
+    """The grid's lr schedule (see :class:`LrSchedule`)."""
+    boundaries = {m * steps_per_epoch: cfg.lr_gamma for m in cfg.lr_milestones}
+    return LrSchedule(cfg.learning_rate, tuple(sorted(boundaries.items())))
 
 
 class RMSprop(torch.optim.Optimizer):
     """optax.rmsprop(lr, decay, eps) as optax 0.2.6 computes it:
     nu <- (1 - decay) g^2 + decay nu from nu = 0, then p <- p - lr g / sqrt(nu
     + eps), eps INSIDE the root. torch.optim.RMSprop adds eps outside the
-    root, which is another optimizer where nu is near 0."""
+    root, which is another optimizer where nu is near 0. nu exists from the
+    start and is updated in place, and the lr may be a device tensor, so
+    that a CUDA graph can capture the step."""
 
-    def __init__(self, params, lr: float = 1e-2, decay: float = 0.95, eps: float = 1e-8):
+    def __init__(self, params, lr=1e-2, decay: float = 0.95, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["nu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -203,12 +227,10 @@ class RMSprop(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                st = self.state[p]
-                if "nu" not in st:
-                    st["nu"] = torch.zeros_like(p)
-                g = p.grad
-                st["nu"] = (1 - d) * (g * g) + d * st["nu"]
-                p.add_(torch.rsqrt(st["nu"] + group["eps"]) * g, alpha=-group["lr"])
+                nu, g = self.state[p]["nu"], p.grad
+                nu.mul_(d).add_((1 - d) * (g * g))
+                p.addcmul_(torch.add(nu, group["eps"]).rsqrt_().mul_(group["lr"]), g,
+                           value=-1.0)
 
 
 def make_optimizer(cfg: DenseConfig, grid: torch.Tensor) -> torch.optim.Optimizer:
@@ -216,26 +238,43 @@ def make_optimizer(cfg: DenseConfig, grid: torch.Tensor) -> torch.optim.Optimize
     as optax.adam: the same update m_hat / (sqrt(v_hat) + eps)), fused into
     one kernel, or with cfg.optimizer == "rmsprop" optax's rmsprop
     (:class:`RMSprop`). Both update the whole grid every step, as optax's:
-    a voxel with zero gradient still moves under Adam's momentum. The lr
-    is set each step from the schedule (TrainState.lr)."""
+    a voxel with zero gradient still moves under Adam's momentum. The lr is
+    a 0-d f32 tensor on the grid's device that each step sets from the
+    schedule (TrainState.lr), and Adam is capturable, so that a CUDA graph
+    can replay the step (:func:`make_multi_step`)."""
+    lr = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=grid.device)
     if cfg.optimizer == "rmsprop":
-        return RMSprop([grid], lr=cfg.learning_rate, decay=0.95, eps=1e-8)
-    return torch.optim.Adam([grid], lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                            fused=True)
+        return RMSprop([grid], lr=lr, decay=0.95, eps=1e-8)
+    opt = torch.optim.Adam([grid], lr=lr, betas=(0.9, 0.999), eps=1e-8, fused=True,
+                           capturable=True)
+    # The eager steps (a graph's warm-up chunk, scan_chunk 1) are intended:
+    # no warning that a capturable Adam runs uncaptured.
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a training step reads and updates (in place: the grid and its
-    moments are updated where they lie, as tpu3d donates its state)."""
+    moments are updated where they lie, as tpu3d donates its state, and so
+    are the latents and the device count, which a CUDA graph's replays read
+    and write)."""
     grid: VoxelGrid                       # grid.grid: the trained leaf
     optimizer: torch.optim.Optimizer
-    lr: Callable[[int], float]            # the schedule, by update count
-    step: int = 0
+    lr: LrSchedule                        # the schedule, by update count
+    step: int = 0                         # updates so far: the host's copy of ``count``
     # Per-image exposure latents (3, M, 3) = [log-gains, Adam m, Adam v].
     exposure: Optional[torch.Tensor] = None
     # View-directional background SH (3, 3, 9) = [coeffs, Adam m, Adam v].
     background: Optional[torch.Tensor] = None
+    # Updates so far, a 0-d int64 tensor on the grid's device: the lr
+    # schedule and the latents' bias correction read it there.
+    count: Optional[torch.Tensor] = None
+
+    def set_step(self, step: int) -> None:
+        """Set the update count on the host and on the device."""
+        self.step = int(step)
+        self.count.fill_(self.step)
 
 
 def init_exposure(n_cams: int, device="cpu") -> torch.Tensor:
@@ -261,7 +300,8 @@ def init_state(cfg: DenseConfig, grid: VoxelGrid, steps_per_epoch: int,
         VoxelGrid(g, grid.min_bound, grid.max_bound), make_optimizer(cfg, g),
         _lr_schedule(cfg, steps_per_epoch), 0,
         init_exposure(n_cams, dev) if cfg.exposure and n_cams is not None else None,
-        init_background(dev) if cfg.sh_background else None)
+        init_background(dev) if cfg.sh_background else None,
+        torch.zeros((), dtype=torch.int64, device=dev))
 
 
 def _ray_background(bg_sh: Optional[torch.Tensor], rd: torch.Tensor) -> Optional[torch.Tensor]:
@@ -280,19 +320,22 @@ def _exposure_apply(pred: torch.Tensor, gains: Optional[torch.Tensor],
     return pred * torch.exp(gains[cid])
 
 
-def _exposure_adam(exposure: torch.Tensor, g: torch.Tensor, step: int,
-                   lr: float) -> torch.Tensor:
+def _exposure_adam(exposure: torch.Tensor, g: torch.Tensor, step, lr: float) -> torch.Tensor:
     """Adam on stacked latents [values, m, v] with the grid's step count,
-    as tpu3d's manual update (kept out of the grid optimizer)."""
+    as tpu3d's manual update (kept out of the grid optimizer), in place.
+    ``step`` is the update's 0-based count: an int, or a 0-d tensor on the
+    latents' device (no host read, for a CUDA graph). Returns
+    ``exposure``."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     gains, m, v = exposure[0], exposure[1], exposure[2]
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * g * g
-    t = torch.tensor(step + 1.0, dtype=torch.float32)
-    mhat = m / (1 - torch.tensor(b1, dtype=torch.float32) ** t)
-    vhat = v / (1 - torch.tensor(b2, dtype=torch.float32) ** t)
+    t = ((step + 1).float() if torch.is_tensor(step)
+         else torch.tensor(step + 1.0, dtype=torch.float32))
+    mhat = m / (1 - torch.full_like(t, b1) ** t)
+    vhat = v / (1 - torch.full_like(t, b2) ** t)
     gains = gains - lr * mhat / (torch.sqrt(vhat) + eps)
-    return torch.stack([gains, m, v])
+    return exposure.copy_(torch.stack([gains, m, v]))
 
 
 def _crop(grid: torch.Tensor, origin, size, channel: Optional[int] = None) -> torch.Tensor:
@@ -387,19 +430,21 @@ def _add_priors(loss: torch.Tensor, grid: torch.Tensor, cfg: DenseConfig,
 def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
             gains: Optional[torch.Tensor], bg_sh: Optional[torch.Tensor]) -> torch.Tensor:
     """One backward for the grid and the latents, the latents' Adam, then
-    the grid optimizer at the scheduled lr. Returns the detached loss."""
+    the grid optimizer at the scheduled lr, all from the device count (no
+    host value that a graph replay would repeat). Returns the detached
+    loss."""
     loss.backward()
     with torch.no_grad():
         if gains is not None:
-            state.exposure = _exposure_adam(state.exposure, gains.grad, state.step,
-                                            cfg.exposure_lr)
+            _exposure_adam(state.exposure, gains.grad, state.count, cfg.exposure_lr)
         if bg_sh is not None:
-            state.background = _exposure_adam(state.background, bg_sh.grad, state.step,
-                                              cfg.background_lr)
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.lr(state.step)
+            _exposure_adam(state.background, bg_sh.grad, state.count, cfg.background_lr)
+        lr = state.lr.on_device(state.count)
+        for group in state.optimizer.param_groups:
+            group["lr"].copy_(lr)
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
+    state.count.add_(1)
     state.step += 1
     return loss.detach()
 
@@ -545,7 +590,7 @@ def load_checkpoint(store, cfg: DenseConfig, steps_per_epoch: int, device,
 
     grid = VoxelGrid(grid_tensor(data["grid"], device), vec("min_bound"), vec("max_bound"))
     state = init_state(cfg, grid, steps_per_epoch)
-    state.step = int(data["step"])
+    state.set_step(int(data["step"]))
     state.exposure = vec("exposure") if "exposure" in data else None
     state.background = vec("background") if "background" in data else None
     p = state.grid.grid
@@ -568,6 +613,132 @@ def _chunk_plan(steps_per_epoch: int, chunk: int) -> List[Tuple[int, int]]:
         out.append((b, k))
         b += k
     return out
+
+
+class _Graph(NamedTuple):
+    """One captured chunk length: the graph, its static (k, B) index block,
+    its (k,) losses, the kernel launches its capture recorded, and the
+    addresses of the tensors it reads."""
+    graph: "torch.cuda.CUDAGraph"
+    idx: torch.Tensor
+    losses: torch.Tensor
+    launches: Dict[str, int]
+    inputs: Tuple[int, ...]
+
+
+class MultiStep:
+    """What :func:`make_multi_step` returns: a callable that runs one chunk
+    of training steps. ``replays``, ``eager_chunks`` and
+    ``capture_seconds`` record how the chunks ran; :meth:`release` drops
+    the graphs and their memory pool."""
+
+    def __init__(self, step_fn: Callable, with_occ: bool):
+        self.step_fn, self.with_occ = step_fn, with_occ
+        self.graphs: Dict[int, _Graph] = {}
+        self.warm: set = set()
+        self.pool = None
+        self.replays = self.eager_chunks = 0
+        self.capture_seconds: List[float] = []
+
+    def _steps(self, state, cfg, idx, rays, generator, noise, kw) -> torch.Tensor:
+        """The chunk's steps, one ``step_fn`` call each, over the rows of
+        ``idx`` into ``rays`` (origins, directions, colours, camera ids or
+        None): (k,) losses."""
+        o_all, d_all, rgb_all, cid_all = rays
+        losses = []
+        for j in range(idx.shape[0]):
+            ix = idx[j]
+            losses.append(self.step_fn(
+                state, cfg, o_all[ix], d_all[ix], rgb_all[ix],
+                None if cid_all is None else cid_all[ix], generator=generator,
+                noise=None if noise is None else noise(j), **kw))
+        return torch.stack(losses)
+
+    def __call__(self, state: TrainState, cfg: DenseConfig, idx: torch.Tensor,
+                 o_all: torch.Tensor, d_all: torch.Tensor, rgb_all: torch.Tensor,
+                 occ: Optional[torch.Tensor] = None, cid_all: Optional[torch.Tensor] = None,
+                 base: Optional[VoxelGrid] = None, generator: Optional[torch.Generator] = None,
+                 noise: Optional[Callable[[int], StepNoise]] = None) -> torch.Tensor:
+        """Steps ``state`` over the (k, B) index block ``idx`` into the
+        device-resident rays (and their camera ids ``cid_all``), with the
+        occupancy grid ``occ`` and the cascade base ``base`` (``with_occ``),
+        random numbers from ``generator`` or ``noise(j)`` for the chunk's
+        j-th step. Returns the (k,) losses on the device. ``occ`` must be
+        updated in place between chunks: a replay reads the tensor its
+        capture saw."""
+        kw = dict(occ=occ, base=base) if self.with_occ else {}
+        rays = (o_all, d_all, rgb_all, cid_all)
+        k = idx.shape[0]
+        if not idx.is_cuda or (k not in self.graphs and k not in self.warm):
+            self.warm.add(k)
+            self.eager_chunks += 1
+            return self._steps(state, cfg, idx, rays, generator, noise, kw)
+        inputs = tuple(t.data_ptr() for t in (*rays, occ, None if base is None else base.grid)
+                       if t is not None)
+        g = self.graphs.get(k)
+        if g is None:
+            static = torch.empty_like(idx)
+            g = self.graphs[k] = self._capture(
+                lambda: self._steps(state, cfg, static, rays, generator, noise, kw), state,
+                static, generator, inputs)
+        elif g.inputs != inputs:
+            raise RuntimeError("make_multi_step: a chunk's rays, occupancy or base are not "
+                               "the tensors its graph was captured with")
+        g.idx.copy_(idx)
+        g.graph.replay()
+        for name, n in g.launches.items():
+            LAUNCHES[name] += n
+        state.step += k
+        self.replays += 1
+        return g.losses.clone()     # the graph's own buffer is rewritten by its next replay
+
+    def _capture(self, steps: Callable[[], torch.Tensor], state: TrainState,
+                 static: torch.Tensor, generator: Optional[torch.Generator],
+                 inputs: Tuple[int, ...]) -> _Graph:
+        """``steps`` (the chunk's steps over the static index block
+        ``static``) captured as one graph. The capture runs the steps'
+        Python but no kernel, so the host's step count and the launch
+        counts it added are taken back (each replay adds them)."""
+        step0, before = state.step, dict(LAUNCHES)
+        out = []
+        t0 = time.time()
+        graph = capture(lambda: out.append(steps()), [] if generator is None else [generator],
+                        self.pool, static.device)
+        self.capture_seconds.append(time.time() - t0)
+        self.pool = self.pool or graph.pool()
+        launches = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+        LAUNCHES.update(before)
+        state.step = step0
+        return _Graph(graph, static, out[0], launches, inputs)
+
+    def release(self) -> None:
+        """Drop the captured graphs and hand their memory pool back to the
+        card, for the next phase."""
+        captured = bool(self.graphs)
+        self.graphs.clear()
+        self.pool = None
+        if captured:
+            torch.cuda.empty_cache()
+
+
+def make_multi_step(step_fn: Callable, with_occ: bool) -> MultiStep:
+    """tpu3d's make_multi_step (train.py:514): K training steps, one
+    chunk of tpu3d's scan, against a ray dataset that stays on the device;
+    the host sends only the (K, batch) block of indices. ``step_fn`` is
+    :func:`train_step` (``with_occ``: it takes the occupancy grid and the
+    cascade base) or :func:`sdf_train_step`.
+
+    On the card a chunk of K steps is one CUDA graph, replayed: the first
+    chunk of each length K runs eagerly (the warm-up: the kernel library,
+    the optimizer's state and every kernel load there), the second is
+    captured, on a side stream, and replayed, and every later chunk of that
+    length replays it. The graphs share one memory pool; the loop releases
+    them at the end of its phase. The step is the same code eagerly and
+    captured: its lr, bias corrections and state updates read and write
+    device tensors in place, and its draws come from a generator registered
+    with the graph, so a replay continues the eager stream of draws. On the
+    CPU every chunk runs eagerly."""
+    return MultiStep(step_fn, with_occ)
 
 
 def _coarse_stage(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: VoxelGrid,
@@ -598,6 +769,46 @@ def _coarse_stage(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: VoxelG
                    grid.max_bound.clone())
     rest = dataclasses.replace(cfg, epochs=cfg.epochs - cfg.coarse_epochs, coarse_epochs=0)
     return up, losses, rest, phase
+
+
+class _LossLog:
+    """A training loop's loss log: the loss of every ``log_every``-th step
+    of an epoch, read back from its chunk's (k,) device losses (tpu3d's
+    ``loss_chunk``) into ``losses``, and recorded in ``entries`` with its
+    epoch, step, update count and seconds since the log began; printed
+    after ``prefix`` unless it is None."""
+
+    def __init__(self, losses: List[float], log_every: int, batch: int, steps_per_epoch: int,
+                 prefix: Optional[str]):
+        self.losses, self.entries = losses, []
+        self.log_every, self.batch, self.steps_per_epoch = log_every, batch, steps_per_epoch
+        self.prefix = prefix
+        self.t0 = time.time()
+
+    def chunk(self, lc: torch.Tensor, b: int, epoch: int, updates: int) -> None:
+        """The chunk of steps b, b + 1, ... that ends at update ``updates``."""
+        k = lc.shape[0]
+        for j in range(b, b + k):
+            if j % self.log_every:
+                continue
+            lv = float(lc[j - b])
+            self.losses.append(lv)
+            self.entries.append({"epoch": epoch, "step": j, "update": updates - (b + k - 1 - j),
+                                 "loss": lv, "seconds": time.time() - self.t0})
+            if self.prefix is not None:
+                rate = (j + 1) * self.batch / (time.time() - self.t0)
+                print(f"{self.prefix} epoch {epoch} step {j}/{self.steps_per_epoch} "
+                      f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+
+
+def _graph_record(multi: Optional[MultiStep]) -> dict:
+    """A phase's record of how make_multi_step ran its chunks (none with
+    scan_chunk 1): graph replays, chunks run eagerly (all of them on the
+    CPU; a length's warm-up on the card) and each capture's seconds."""
+    if multi is None:
+        return dict(replays=0, eager_chunks=0, capture_seconds=[])
+    return dict(replays=multi.replays, eager_chunks=multi.eager_chunks,
+                capture_seconds=list(multi.capture_seconds))
 
 
 def _camera_gate_probe(state: TrainState, dataset: RayDataset, cfg: DenseConfig,
@@ -728,13 +939,14 @@ def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed:
                          device=dev)
     chunk = 1 if n < cfg.batch_size else max(int(cfg.scan_chunk), 1)
     plan = _chunk_plan(steps_per_epoch, chunk)
+    multi = make_multi_step(train_step, with_occ=True) if chunk > 1 else None
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    log, refreshes = [], []
+    refreshes = []
     gate, gate_dropped, kept = None, [], None
     global_step, next_occ, step0 = 0, cfg.occupancy_every, state.step
     B = cfg.batch_size
-    t0 = time.time()
+    log = _LossLog(losses, log_every, B, steps_per_epoch, "[dense]" if verbose else None)
     with f32_scope():
         for epoch in range(start_epoch, cfg.epochs):
             if (cfg.camera_gate and gate is None and dataset.cam_ids is not None
@@ -750,36 +962,35 @@ def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed:
                 perm = kept[torch.randperm(len(kept), generator=gen, device=dev)]
             for b, k_steps in plan:
                 if occ is not None and global_step >= next_occ:
-                    occ = occupancy_from_grid(state.grid.grid.detach(), cfg.occupancy_factor,
-                                              cfg.occupancy_threshold)
+                    # in place: a captured chunk reads this tensor
+                    occ.copy_(occupancy_from_grid(state.grid.grid.detach(), cfg.occupancy_factor,
+                                                  cfg.occupancy_threshold))
                     refreshes.append(dict(step=global_step, epoch=epoch,
                                           occupied=float(occ.float().mean())))
                     next_occ += cfg.occupancy_every
-                for j in range(b, b + k_steps):
-                    idx = perm[j * B:(j + 1) * B]
-                    loss = train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
-                                      None if cid_all is None else cid_all[idx], generator=gen,
-                                      occ=occ, base=base)
-                    if j % log_every == 0:
-                        lv = float(loss)
-                        losses.append(lv)
-                        log.append({"epoch": epoch, "step": j, "update": state.step,
-                                    "loss": lv, "seconds": time.time() - t0})
-                        if verbose:
-                            rate = (j + 1) * B / (time.time() - t0)
-                            print(f"[dense] epoch {epoch} step {j}/{steps_per_epoch} "
-                                  f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+                if multi is not None:
+                    lc = multi(state, cfg, perm[b * B:(b + k_steps) * B].view(k_steps, B), o_all,
+                               d_all, rgb_all, occ=occ, cid_all=cid_all, base=base,
+                               generator=gen)
+                else:
+                    idx = perm[b * B:(b + 1) * B]
+                    lc = train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
+                                    None if cid_all is None else cid_all[idx], generator=gen,
+                                    occ=occ, base=base)[None]
                 global_step += k_steps
+                log.chunk(lc, b, epoch, state.step)
             if checkpoint_store is not None:
                 save_checkpoint(checkpoint_store, state, epoch, losses)
     phases.append(dict(phase="detail" if base is not None else "fine" if phases else "train",
-                       res=list(state.grid.resolution), steps=state.step - step0, log=log,
-                       seconds=time.time() - t0))
+                       res=list(state.grid.resolution), steps=state.step - step0,
+                       log=log.entries, seconds=time.time() - log.t0, **_graph_record(multi)))
+    if multi is not None:
+        multi.release()
     LAST_TRAIN_AUX.clear()
     LAST_TRAIN_AUX.update(
         background=None if state.background is None else state.background[0].cpu().numpy(),
         exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
-        dropped_cameras=gate_dropped, log=log, steps=state.step,
+        dropped_cameras=gate_dropped, log=log.entries, steps=state.step,
         occupancy_refreshes=refreshes, camera_gate=gate, phases=phases)
     vg = state.grid
     return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses
@@ -839,37 +1050,37 @@ def train_sdf(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed: int 
     cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
                if n_cams is not None else None)
     chunk = 1 if n < cfg.batch_size else max(int(cfg.scan_chunk), 1)
+    multi = make_multi_step(sdf_train_step, with_occ=False) if chunk > 1 else None
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    B, log = cfg.batch_size, []
-    t0 = time.time()
+    B, shape = cfg.batch_size, state.grid.grid.shape
+    log = _LossLog(losses, log_every, B, steps_per_epoch, "[sdf]" if verbose else None)
     with f32_scope():
         for epoch in range(cfg.epochs):
             perm = _permutation(n, gen, dev, epoch)
             for b, k_steps in _chunk_plan(steps_per_epoch, chunk):
-                for j in range(b, b + k_steps):
-                    idx = perm[j * B:(j + 1) * B]
-                    noise = _sdf_step_noise(cfg, state.grid.grid.shape, len(idx), gen, dev,
-                                            epoch, j)
-                    loss = sdf_train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
-                                          None if cid_all is None else cid_all[idx],
-                                          noise=noise)
-                    if j % log_every == 0:
-                        lv = float(loss)
-                        losses.append(lv)
-                        log.append({"epoch": epoch, "step": j, "update": state.step,
-                                    "loss": lv, "seconds": time.time() - t0})
-                        if verbose:
-                            rate = (j + 1) * B / (time.time() - t0)
-                            print(f"[sdf] epoch {epoch} step {j}/{steps_per_epoch} "
-                                  f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+                if multi is not None:
+                    lc = multi(state, cfg, perm[b * B:(b + k_steps) * B].view(k_steps, B), o_all,
+                               d_all, rgb_all, cid_all=cid_all, generator=gen,
+                               noise=lambda j, e=epoch, s=b: _sdf_step_noise(
+                                   cfg, shape, B, gen, dev, e, s + j))
+                else:
+                    idx = perm[b * B:(b + 1) * B]
+                    lc = sdf_train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
+                                        None if cid_all is None else cid_all[idx],
+                                        noise=_sdf_step_noise(cfg, shape, len(idx), gen, dev,
+                                                              epoch, b))[None]
+                log.chunk(lc, b, epoch, state.step)
     phases.append(dict(phase="fine" if phases else "train", res=list(state.grid.resolution),
-                       steps=state.step, log=log, seconds=time.time() - t0))
+                       steps=state.step, log=log.entries, seconds=time.time() - log.t0,
+                       **_graph_record(multi)))
+    if multi is not None:
+        multi.release()
     LAST_TRAIN_AUX.clear()
     LAST_TRAIN_AUX.update(
         background=None if state.background is None else state.background[0].cpu().numpy(),
         exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
-        dropped_cameras=[], log=log, steps=state.step, occupancy_refreshes=[],
+        dropped_cameras=[], log=log.entries, steps=state.step, occupancy_refreshes=[],
         camera_gate=None, phases=phases)
     vg = state.grid
     return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses

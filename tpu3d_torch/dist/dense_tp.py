@@ -464,8 +464,8 @@ def _train_tp(dataset, cfg: DenseConfig, mesh: Mesh, seed: int, grid: Optional[V
             start_epoch += 1
             state = step.place(brick.grid, steps_per_epoch, n_cams)
             state.optimizer.state[state.grid.grid] = brick.optimizer.state[brick.grid.grid]
-            state.step, state.exposure, state.background = brick.step, brick.exposure, \
-                brick.background
+            state.set_step(brick.step)
+            state.exposure, state.background = brick.exposure, brick.background
             del brick
             if verbose:
                 print(f"[dense-tp] resumed at epoch {start_epoch}", flush=True)
