@@ -23,7 +23,11 @@ Phases, one line each, any failure exits non-zero:
                detector's and the descriptor's calls on one real extract
                batch, trilinear at the render, the train and the recipe's
                hierarchical fine shape, and once on a 432^3 x 28 grid, past
-               2^31 values, where the kernel takes int64 offsets): max
+               2^31 values, where the kernel takes int64 offsets; the
+               scatter at one training step's shape and on 1,500 points in
+               one cell, bit for bit against its plain version on a CPU copy
+               of the inputs, two launches bit for bit, and the call's
+               pieces alone: keys, sort, offsets, kernel): max
                error, bound ms, and for the kernel, its plain version and
                one library call three numbers each (``_times``): device ms
                per launch (torch.profiler), wall ms per back-to-back launch
@@ -50,13 +54,13 @@ Phases, one line each, any failure exits non-zero:
                with its capture's), and how the chunks of 16 steps ran: graph
                replays (at least one, in every training phase of phases
                6-8 and 11), eager warm-up chunks, capture seconds; then
-               ``_profile_train_step`` at the same shapes: make_multi_step's
-               graph against the eager loop after two chunks on the same
-               draws (rtol 2e-4 / atol 5e-4), three chunks of each in turns
+               ``_profile_train_step`` at the same shapes: two eager runs
+               and make_multi_step's graph after two chunks on the same
+               draws, bit for bit, three chunks of each in turns
                (ms per step, host ms per chunk), and one eager step and one
                replayed chunk under torch.profiler: the device time of the
-               forward kernel, the scatter with its fill, the Adam update
-               and the elementwise kernels, and the busy share.
+               forward kernel, the scatter, the Adam update and the
+               elementwise kernels, and the busy share.
   7. recipe  — densify at tpu3d's dense recipe of record (RECIPE_FLAGS:
                contraction at core_q 70, hierarchical 64 + 64 samples,
                256^3 x 28, a coarse 128^3 epoch, two fine epochs, then the
@@ -76,7 +80,9 @@ Phases, one line each, any failure exits non-zero:
                occupancy refreshes' steps (tpu3d's cadence, step 513 among
                them) and occupied share, the gate's probe MSEs and dropped
                cameras, the PSNR, launches; one held-out view rendered with
-               and without occupancy pruning (PSNR and wall); then a
+               and without occupancy pruning (PSNR and wall); the run's
+               step (hierarchical, guided by the trained grid's occupancy)
+               through ``_profile_train_step`` (phase 6); then a
                --rays-pkl run on ray files of the same views at stride 16,
                2 epochs.
   9. full    — sfm.pipeline.reconstruct (extract -> retrieve -> match ->
@@ -324,9 +330,9 @@ DIST_STEPS = 5
 DIST_TIMEOUT_S = 420
 # make_multi_step's CUDA graph against the eager loop at each profiled
 # step's shapes: two chunks (the graph's warm-up, then a replay) on the same
-# draws within tpu3d's tolerance between its own two routes (the scatter's
-# atomics rule out bit equality); then GRAPH_TURNS chunks of each, in turns.
-GRAPH_RTOL, GRAPH_ATOL, GRAPH_TURNS = 2e-4, 5e-4, 3
+# draws, bit for bit (every sum of the step, the scatter's too, has a fixed
+# order); then GRAPH_TURNS chunks of each, in turns.
+GRAPH_TURNS = 3
 # orient_desc_kernel against its plain version: theta within 1e-5 rad and
 # samples within orient_desc.sample_tolerance (1e-5 x max|g|, plus what the
 # theta difference can move a sample) except at near ties (< 5%).
@@ -939,29 +945,58 @@ def _recipe_inputs(root: str, scene: dict):
 def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     """trilinear_grad_kernel against its plain version at one training
     step's shape: the 256^3 x 28 grid and the 2,048 x 192 = 393,216 jittered
-    sample points of the first batch of training rays, random cotangents."""
+    sample points of the first batch of training rays, random cotangents;
+    then 1,500 points in one cell of that grid (every sample in one run).
+    The kernel sums in the plain version's order on the CPU, so it must
+    equal the plain version on a CPU copy of the inputs bit for bit (the
+    plain version's index_add_ on the card sums in no fixed order), and a
+    second launch on copies of the inputs must give the same bits."""
     import torch.nn.functional as F
 
-    from tpu3d_torch.kernels import trilinear as tri
     from tpu3d_torch.kernels import trilinear_grad as tg
 
     R, B, S, C = cfg.grid_resolution, cfg.batch_size, cfg.num_samples, 28
     res = (R, R, R)
     pts, mn, mx, g = _train_points(torch, dev, cfg, ds)
     ct = torch.randn((B * S, C), generator=g, device=dev)
-    out = tg.trilinear_scatter_grad(ct, mn, mx, res, pts)
-    ref = tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    scale = float(ref.abs().max())
-    if not err <= 1e-5 * scale:
-        _fail(f"trilinear_grad_kernel: max |err| {err:.3g} > 1e-5 x max|plain| {scale:.3g}")
-    del out
+    cell = (mx - mn) / (R - 1)
+    lump = mn + (torch.tensor([100.0, 120.0, 140.0], device=dev)
+                 + torch.rand((1500, 3), generator=g, device=dev) * 0.9 + 0.05) * cell
+    lump_ct = torch.randn((1500, C), generator=g, device=dev)
+    errs = []
+    for what, p, c in (("training step", pts, ct), ("1,500 points in one cell", lump, lump_ct)):
+        out = tg.trilinear_scatter_grad(c, mn, mx, res, p)
+        again = tg.trilinear_scatter_grad(c.clone(), mn.clone(), mx.clone(), res, p.clone())
+        torch.cuda.synchronize()
+        repeat = torch.equal(out, again)
+        del again
+        out = out.cpu()
+        ref = tg.trilinear_scatter_grad_plain(c.cpu(), mn.cpu(), mx.cpu(), res, p.cpu())
+        bits = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        err = float((out - ref).abs().max())
+        errs.append(err)
+        print(f"kernel trilinear_grad_kernel {what} (N={len(p)}): against the plain version "
+              f"on the CPU bit for bit {'yes' if bits else 'NO'} (max |diff| {err:.3g}, "
+              f"max|plain| {float(ref.abs().max()):.3g}); two launches bit for bit "
+              f"{'yes' if repeat else 'NO'}", flush=True)
+        del out, ref
+        if not (bits and repeat):
+            _fail(f"trilinear_grad_kernel ({what}): bit for bit against the plain version on "
+                  f"the CPU {bits}, two launches {repeat} (max |diff| {err:.3g})")
+    err = max(errs)
     row = _times(torch, lambda: tg.trilinear_scatter_grad(ct, mn, mx, res, pts), 20)
-    buf = torch.zeros((R, R, R, C), device=dev)
-    scatter_ms = _time_ms(torch, lambda: tg.launch_scatter(ct, mn, mx, pts, buf), 20)
-    fill_ms = _time_ms(torch, lambda: buf.zero_(), 20)
-    del buf
+    # The pieces of the call, each alone (CUDA events, wall per launch).
+    keys, weights = tg.launch_keys(mn, mx, res, pts)
+    binned = tg.bins(keys, res)
+    buf = torch.empty((R, R, R, C), device=dev)
+    pieces = {
+        "keys": _time_ms(torch, lambda: tg.launch_keys(mn, mx, res, pts), 20),
+        "sort": _time_ms(torch, lambda: torch.sort(keys, stable=True), 20),
+        "offsets": _time_ms(torch, lambda: torch.searchsorted(
+            binned[0], torch.arange(R * R + 1, dtype=torch.int32, device=dev) * R,
+            out_int32=True), 20),
+        "kernel": _time_ms(torch, lambda: tg.launch_scatter(ct, weights, *binned, buf), 20)}
+    del buf, keys, weights, binned
     row.update(_times(torch, lambda: tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts), 3,
                       "plain_"))
     # Library yardstick: the backward of one grid_sample (channels-first copy,
@@ -975,26 +1010,21 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     row.update(_times(torch, lambda: torch.autograd.grad(gs, vol, go, retain_graph=True), 10,
                       "library_"))
     lib = torch.autograd.grad(gs, vol, go)[0][0].permute(1, 2, 3, 0)
-    lib_diff = float((lib - ref).abs().max())
-    del vol, gs, go, lib, ref
-    # Bounds, by bytes: the full call writes the whole gradient once (the
-    # fill) and reads the cotangents and the points; the scatter alone reads
-    # those and writes each row the in-box samples touch, once.
+    lib_diff = float((lib - tg.trilinear_scatter_grad(ct, mn, mx, res, pts)).abs().max())
+    del vol, gs, go, lib
+    # Bound, by bytes: the call writes the whole gradient once and reads the
+    # cotangents, the points and the box.
     N = B * S
-    i0, _, inb = tri._corner_setup(res, mn, mx, pts)
-    i0 = i0[inb]
-    base = (i0[:, 0] * R + i0[:, 1]) * R + i0[:, 2]
-    offs = torch.tensor([0, 1, R, R + 1, R * R, R * R + 1, R * R + R, R * R + R + 1], device=dev)
-    rows = torch.unique((base[:, None] + offs).reshape(-1)).numel()
-    in_bytes = 4 * C * N + 12 * N + 24
-    bound_ms = (4 * C * R ** 3 + in_bytes) / H100_BYTES_PER_S * 1e3
-    scatter_bound_ms = (in_bytes + 4 * C * rows) / H100_BYTES_PER_S * 1e3
-    print(f"kernel trilinear_grad_kernel grid {R}^3x{C} N={N} (in box {int(inb.sum())}): "
-          f"max_abs_err={err:.3g} (max|plain| {scale:.3g}, ratio {err / scale:.3g}); "
-          f"times with the zero fill (fill alone {fill_ms:.4f} ms, scatter alone "
-          f"{scatter_ms:.4f} ms wall); library = grid_sample's backward (max diff "
-          f"{lib_diff:.3g}); bound_ms={bound_ms:.4f} scatter_bound_ms={scatter_bound_ms:.4f} "
-          f"(rows touched {rows}); " + _fmt_times(row), flush=True)
+    bound_ms = (4 * C * R ** 3 + 4 * C * N + 12 * N + 24) / H100_BYTES_PER_S * 1e3
+    print(f"kernel trilinear_grad_kernel grid {R}^3x{C} N={N}: max_abs_err={err:.3g}; "
+          f"the call's pieces alone (wall ms) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in pieces.items())
+          + f"; library = grid_sample's backward (max diff {lib_diff:.3g}); "
+          f"bound_ms={bound_ms:.4f}; " + _fmt_times(row), flush=True)
+    if row["ms"] is not None and row["library_ms"] is not None and \
+            not row["ms"] < row["library_ms"]:
+        _fail(f"trilinear_grad_kernel: the call's {row['ms']:.4f} device ms is not below "
+              f"grid_sample's backward {row['library_ms']:.4f} ms")
     return dict(row, name="trilinear_grad_kernel", route="cuda",
                 source="tpu3d_torch/csrc/trilinear_grad.cu",
                 replaces="tpu3d/kernels/trilinear_grad.py:157", max_abs_err=err,
@@ -1671,7 +1701,7 @@ def _step_groups(per_kernel: dict, steps: int) -> dict:
               "adam": 0.0, "other": 0.0}
     for name, ms in per_kernel.items():
         low = name.lower()
-        key = ("trilinear_grad_kernel" if "trilinear_grad_kernel" in name
+        key = ("trilinear_grad_kernel" if "trilinear_grad" in name
                else "trilinear_kernel" if "trilinear_kernel" in name
                else "adam" if "adam" in low
                else "fill" if "fill" in low or "memset" in low else "other")
@@ -1681,27 +1711,25 @@ def _step_groups(per_kernel: dict, steps: int) -> dict:
 
 def _fmt_groups(groups: dict) -> str:
     return (f"forward trilinear_kernel {groups['trilinear_kernel']:.3f}, scatter "
-            f"trilinear_grad_kernel {groups['trilinear_grad_kernel']:.3f} + fills "
-            f"{groups['fill']:.3f}, Adam {groups['adam']:.3f}, elementwise and other (RMSprop's "
-            f"update among them) {groups['other']:.3f}")
+            f"trilinear_grad_keys + trilinear_grad_kernel {groups['trilinear_grad_kernel']:.3f} "
+            f"(its sort and offsets under other), fills {groups['fill']:.3f}, Adam "
+            f"{groups['adam']:.3f}, elementwise and other (RMSprop's update among them) "
+            f"{groups['other']:.3f}")
 
 
 def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=None,
-                        base=None, sdf=False, hold=True) -> None:
+                        base=None, sdf=False, occ=None) -> None:
     """Training steps at the train phase's shapes (or a ``res`` grid over
-    ``box``, trained against a cascade ``base``; the SDF step with ``sdf``)
-    on three fresh states from one seed: two stepped by the eager loop (one
-    step call at a time), one by make_multi_step in chunks of
-    cfg.scan_chunk (a CUDA graph: its first chunk is the warm-up, run
-    eagerly, its second captured and replayed).
+    ``box``, trained against a cascade ``base`` or guided by an occupancy
+    grid ``occ``; the SDF step with ``sdf``) on three fresh states from one
+    seed: two stepped by the eager loop (one step call at a time), one by
+    make_multi_step in chunks of cfg.scan_chunk (a CUDA graph: its first
+    chunk is the warm-up, run eagerly, its second captured and replayed).
 
-    - After two chunks, the graph's losses against the eager loop's within
-      GRAPH_RTOL / GRAPH_ATOL, and with ``hold`` its grid and optimizer
-      state too (the scatter's atomics rule out bit equality). Without
-      ``hold`` the state is reported beside the two eager runs' own
-      difference: Adam moves a voxel whose gradient is near its 1e-8
-      epsilon by a share of lr, so under contraction a rounding-sized
-      change of the gradient moves a few voxels by up to ~1e-2.
+    - After two chunks, the second eager run against the first, and the
+      graph against the eager loop: losses, grid and optimizer state bit
+      for bit (every sum in the step has a fixed order, the scatter's too),
+      with the largest difference printed beside.
     - GRAPH_TURNS chunks of each in turns, eager then graph: ms per step
       (CUDA events around the chunk) and host ms per chunk (the host clock
       before the synchronize: the enqueue).
@@ -1718,7 +1746,7 @@ def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=N
     B, K = cfg.batch_size, cfg.scan_chunk
     spe = len(ds.origins) // B
     step_fn = sdf_train_step if sdf else train_step
-    kw = {} if sdf else {"base": base}
+    kw = {} if sdf else {"base": base, "occ": occ}
     o, d, c = (torch.from_numpy(a).to(dev) for a in (ds.origins, ds.dirs, ds.rgb))
     rows = torch.arange(spe * B, device=dev)
 
@@ -1756,9 +1784,9 @@ def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=N
         return [p] + [v for v in st.optimizer.state[p].values() if v.dim()]
 
     def compare(got, ref):
-        """(max |diff|, elements beyond GRAPH_RTOL / GRAPH_ATOL) over pairs."""
+        """(max |diff|, bit for bit) over pairs."""
         return (max((g - r).abs().max().item() for g, r in zip(got, ref)),
-                sum(int((~torch.isclose(g, r, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)).sum())
+                all(torch.equal(g.view(torch.int32), r.view(torch.int32))
                     for g, r in zip(got, ref)))
 
     with f32_scope():
@@ -1793,17 +1821,18 @@ def _profile_train_step(torch, dev, cfg, ds, label="train step", res=None, box=N
     torch.cuda.empty_cache()
     busy, g_busy = sum(per_kernel.values()), sum(g_kernel.values())
     r = lambda xs: [round(x, 3) for x in xs]  # noqa: E731
+    yes = {True: "yes", False: "NO"}
     print(f"profile {label}: eager loop {r(ms['eager'])} ms per step, graph replays "
           f"{r(ms['graph'])} (CUDA events around a chunk of {K}, in turns); host ms per chunk "
           f"eager {r(host['eager'])}, graph {r(host['graph'])} (enqueue); capture "
-          f"{r(captures)} s; {replays} replays; graph against the eager loop after 2 chunks "
-          f"(limit rtol {GRAPH_RTOL} atol {GRAPH_ATOL}{'' if hold else ' on the losses'}): "
-          f"losses max |diff| {loss_cmp[0]:.3e}, grid and optimizer state {state_cmp[0]:.3e} "
-          f"({state_cmp[1]} of {n_state} beyond); the two eager runs: {floor_cmp[0]:.3e} "
-          f"({floor_cmp[1]} beyond)", flush=True)
-    if loss_cmp[1] or (hold and state_cmp[1]):
-        _fail(f"{label}: the graph's chunks and the eager loop's differ beyond rtol "
-              f"{GRAPH_RTOL} / atol {GRAPH_ATOL}: losses {loss_cmp}, state {state_cmp}")
+          f"{r(captures)} s; {replays} replays; after 2 chunks, bit for bit: "
+          f"{yes[loss_cmp[1] and state_cmp[1] and floor_cmp[1]]} (graph against the eager "
+          f"loop: losses {yes[loss_cmp[1]]} max |diff| {loss_cmp[0]:.3e}, grid and optimizer "
+          f"state ({n_state} values) {yes[state_cmp[1]]} {state_cmp[0]:.3e}; the two eager "
+          f"runs {yes[floor_cmp[1]]} {floor_cmp[0]:.3e})", flush=True)
+    if not (loss_cmp[1] and state_cmp[1] and floor_cmp[1]):
+        _fail(f"{label}: after 2 chunks not bit for bit: graph against the eager loop losses "
+              f"{loss_cmp}, state {state_cmp}; the two eager runs {floor_cmp}")
     if busy == 0.0 or g_busy == 0.0:
         print(f"profile {label}: device time not measured (the profiler recorded no CUDA "
               f"activity: eager {busy}, graph {g_busy})", flush=True)
@@ -1986,7 +2015,7 @@ def _run_recipe(torch, dev, scene, root, cfg, ds) -> dict:
             ("coarse", 128, box, "adam", None), ("fine", 256, box, "adam", None),
             ("detail", cd["res"], (cd["min_bound"], cd["max_bound"]), "rmsprop", base)):
         _profile_train_step(torch, dev, dataclasses.replace(cfg, optimizer=optimizer), ds,
-                            f"recipe {label} step", res, phase_box, b, hold=label == "detail")
+                            f"recipe {label} step", res, phase_box, b)
     return launches
 
 
@@ -2011,11 +2040,13 @@ def _run_options(torch, dev, scene, root) -> dict:
     """densify at OPTIONS_FLAGS on the card (occupancy refreshes, the camera
     gate, the held-out evaluation), with the launch counts set to 0 just
     before it and read just after; then one held-out view rendered with
-    and without occupancy pruning, and a --rays-pkl run."""
+    and without occupancy pruning, the run's step profiled, and a
+    --rays-pkl run."""
     from tpu3d_torch.cli import densify, densify_from_rays
     from tpu3d_torch.config import DenseConfig
     from tpu3d_torch.dense.eval import dataset_from_views, split_views_by_name, view_rays
     from tpu3d_torch.dense.grid import grid_from_tpu3d
+    from tpu3d_torch.dense.occupancy import occupancy_from_grid
     from tpu3d_torch.dense.render import render_image
     from tpu3d_torch.dense.train import LAST_TRAIN_AUX, SceneNormalization, psnr
     from tpu3d_torch.io.artifacts import ArtifactStore
@@ -2084,6 +2115,12 @@ def _run_options(torch, dev, scene, root) -> dict:
                            clip_aabb=dm["per_ray_aabb"], occ_prune=prune, bg_sh=bg_sh)
         torch.cuda.synchronize()
         views[prune] = (psnr(img.cpu().numpy(), gt), time.time() - t1)
+    # the run's step: hierarchical, guided by the trained grid's occupancy
+    ocfg = DenseConfig(scene_scale=1.0, near=dm["near"], far=dm["far"], hierarchical=True,
+                       occupancy_prune=True)
+    _profile_train_step(torch, dev, ocfg, dataset_from_views(
+        cams, scene["rgb"], scene["focal"], train_idx, norm, stride=OPTIONS_FLAGS["ray_stride"]),
+        "options step", occ=occupancy_from_grid(grid.grid, ocfg.occupancy_factor))
     # --rays-pkl: the same views' rays at every 16th pixel, in the run's frame
     train = dataset_from_views(cams, scene["rgb"], scene["focal"], train_idx, norm,
                                stride=RAYS_PKL_STRIDE)

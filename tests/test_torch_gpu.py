@@ -252,16 +252,9 @@ def test_trilinear_kernel_vector_and_scalar_paths(cuda, gen, C, aligned, N):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("C", [28, 3])
-def test_trilinear_grad_kernel_matches_plain(cuda, gen, C):
-    """The scatter against its plain version: points inside, outside and on
-    the box, and 1,500 in one cell (the conflict-heavy case), on the float4
-    path (C = 28) and the scalar one (C = 3). Atomics sum in no fixed order:
-    within 1e-5 x max|plain|, 1e-4 for the cluster, as tpu3d's tests allow
-    between its scatter and XLA's autodiff."""
-    from tpu3d_torch.kernels.trilinear_grad import (trilinear_scatter_grad,
-                                                    trilinear_scatter_grad_plain)
-
+def _scatter_inputs(cuda, gen):
+    """(res, box, [(points, label)]): points inside, outside and on the box,
+    and 1,500 in one cell (every sample in one run of the kernel's bins)."""
     res = (8, 16, 16)
     mn = torch.full((3,), -1.0, device=cuda)
     mx = torch.full((3,), 1.0, device=cuda)
@@ -270,15 +263,69 @@ def test_trilinear_grad_kernel_matches_plain(cuda, gen, C):
                               device=cuda)
     cluster = torch.tensor([0.1, 0.2, -0.3], device=cuda) + (
         torch.rand((1500, 3), generator=gen, device=cuda) * 0.04 - 0.02)
-    for pts, rel in ((spread, 1e-5), (cluster, 1e-4)):
+    return res, (mn, mx), (spread, cluster)
+
+
+@pytest.mark.parametrize("C", [28, 3])
+def test_trilinear_grad_kernel_matches_plain(cuda, gen, C):
+    """The scatter against its plain version run on a CPU copy of the
+    inputs: points inside, outside and on the box, and 1,500 in one cell
+    (the conflict-heavy case), on the float4 path (C = 28) and the scalar
+    one (C = 3). The kernel sums each element in the plain version's order
+    on the CPU (corner, then sample), so bit for bit."""
+    from tpu3d_torch.kernels.trilinear_grad import (trilinear_scatter_grad,
+                                                    trilinear_scatter_grad_plain)
+
+    res, (mn, mx), clouds = _scatter_inputs(cuda, gen)
+    for pts in clouds:
         g = torch.randn((len(pts), C), generator=gen, device=cuda)
         before = LAUNCHES["trilinear_grad_kernel"]
         got = trilinear_scatter_grad(g, mn, mx, res, pts.contiguous())
         torch.cuda.synchronize()
         assert LAUNCHES["trilinear_grad_kernel"] == before + 1
-        ref = trilinear_scatter_grad_plain(g, mn, mx, res, pts)
+        ref = trilinear_scatter_grad_plain(g.cpu(), mn.cpu(), mx.cpu(), res, pts.cpu())
         assert got.shape == ref.shape == (*res, C)
-        assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_scatter_and_train_step_repeat_bit_for_bit(cuda, gen):
+    """Two launches of the scatter on copies of its inputs (other
+    addresses), and two training steps (every prior and latent on) from one
+    state with the same draws, give the same bits."""
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.kernels.trilinear_grad import trilinear_scatter_grad
+
+    res, (mn, mx), clouds = _scatter_inputs(cuda, gen)
+    for pts in clouds:
+        g = torch.randn((len(pts), 28), generator=gen, device=cuda)
+        first = trilinear_scatter_grad(g, mn, mx, res, pts.contiguous())
+        second = trilinear_scatter_grad(g.clone(), mn.clone(), mx.clone(), res, pts.clone())
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+    cfg = DenseConfig(grid_resolution=16, batch_size=256, num_samples=16, near=0.5, far=4.0,
+                      tv_sigma=0.3, tv_sh=0.05, sparsity_sigma=0.02, exposure=True,
+                      sh_background=True)
+    grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
+    o = torch.zeros((256, 3), device=cuda)
+    o[:, 0] = -2.0
+    d = torch.nn.functional.normalize(torch.randn((256, 3), generator=gen, device=cuda) * 0.4
+                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
+    rgb = torch.rand((256, 3), generator=gen, device=cuda)
+    cid = torch.randint(0, 4, (256,), generator=gen, device=cuda)
+    noise = TT.draw_step_noise(cfg, grid.shape, 256, gen, cuda)
+    runs = []
+    for _ in range(2):
+        st = TT.init_state(cfg, VoxelGrid(grid.clone(), torch.tensor([-1.5] * 3, device=cuda),
+                                          torch.tensor([1.5] * 3, device=cuda)), 5, 4)
+        loss = TT.train_step(st, cfg, o, d, rgb, cid, noise=noise)
+        p = st.grid.grid
+        runs.append([loss.detach(), p.detach(), *st.optimizer.state[p].values(),
+                     st.exposure, st.background])
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
 
 
 def _step_on_card_and_cpu(cuda, gen, cfg, grid, lo, hi, occ=None, base=None, sdf=False):
@@ -341,9 +388,10 @@ def test_train_step_on_the_card(cuda, gen, hierarchical):
     """One training step with every in-slice prior and latent on, through
     both kernels on the card, against the same step on the CPU (plain
     versions) with the same injected random numbers. The gradient (Adam's
-    moments) and the latents agree within 1e-5 x their size (the scatter's
-    atomics and the card's exp/log round differently; 2e-5 for the squared
-    moment, as a square doubles a relative error). The grid within 5e-4,
+    moments) and the latents agree within 1e-5 x their size (the card's
+    exp/log round differently from the CPU's, though the scatter equals its
+    plain version bit for bit; 2e-5 for the squared moment, as a square
+    doubles a relative error). The grid within 5e-4,
     tpu3d's tolerance between its two routes: Adam's first step moves a
     voxel by lr g / (|g| + 1e-8), so where |g| is near 1e-8 a rounding-sized
     change of g moves the voxel by a share of lr (measured on an H100: one
@@ -495,8 +543,8 @@ def test_multi_step_graph_matches_eager_on_the_card(cuda, gen, option):
     """make_multi_step on the card against the same steps called one by
     one, from one seed: chunks of 4 (the first the warm-up, run eagerly;
     the second captured and replayed; the third replayed) and a tail of 2
-    (eager). Losses, grid, moments and latents within rtol 2e-4 / atol 5e-4
-    (the scatter's atomics add in no fixed order), two replays, and the
+    (eager). Losses, grid, moments and latents bit for bit (every sum of
+    the step has a fixed order, the scatter's too), two replays, and the
     kernel launches of each replay credited: as many as the eager steps
     count."""
     from tpu3d_torch.config import DenseConfig
@@ -553,7 +601,7 @@ def test_multi_step_graph_matches_eager_on_the_card(cuda, gen, option):
             assert (multi.replays, multi.eager_chunks, len(multi.capture_seconds)) == (2, 2, 1)
             multi.release()
     assert launched[0] == launched[1] and launched[0][1] == 14
-    assert torch.allclose(losses[1], losses[0], rtol=2e-4, atol=5e-4)
+    assert torch.equal(losses[1], losses[0])
     a, b = states
     assert a.step == b.step == int(b.count) == 14
     pa, pb = a.grid.grid, b.grid.grid
@@ -562,7 +610,7 @@ def test_multi_step_graph_matches_eager_on_the_card(cuda, gen, option):
     pairs += [(x, y) for x, y in ((a.exposure, b.exposure), (a.background, b.background))
               if x is not None]
     for x, y in pairs:
-        assert torch.allclose(y, x, rtol=2e-4, atol=5e-4)
+        assert torch.equal(y, x)
     assert (pb - grid).abs().max().item() > 1e-3
 
 

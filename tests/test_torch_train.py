@@ -49,7 +49,8 @@ from tpu3d_torch.dense.grid import VoxelGrid
 from tpu3d_torch.dense.sdf import sample_pdf, sample_stratified
 from tpu3d_torch.io.artifacts import ArtifactStore
 from tpu3d_torch.kernels import LAUNCHES
-from tpu3d_torch.kernels.trilinear_grad import (trilinear_sample_diff,
+from tpu3d_torch.kernels.trilinear import _corner_setup
+from tpu3d_torch.kernels.trilinear_grad import (bins, trilinear_sample_diff,
                                                 trilinear_scatter_grad,
                                                 trilinear_scatter_grad_plain)
 
@@ -150,6 +151,95 @@ def test_autograd_function_gradcheck():
     mn, mx = torch.full((3,), -1.0, dtype=torch.float64), torch.full((3,), 1.0, dtype=torch.float64)
     pts = t(rng.uniform(-1.2, 1.2, (40, 3)))
     assert torch.autograd.gradcheck(lambda g: trilinear_sample_diff(g, mn, mx, pts)[0], (grid,))
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _numpy_scatter(ct, pts):
+    """The scatter by np.add.at, which adds in index order, over the rows
+    in (corner k = 4a + 2b + c, sample n) order, from numpy's own float32
+    corner setup (tpu3d's _corner_setup arithmetic)."""
+    X, Y, Z = GRES
+    res = np.float32(GRES)
+    u = (pts - MINB) / (MAXB - MINB)
+    inb = ((u >= 0) & (u <= 1)).all(-1)
+    v = u * (res - np.float32(1))
+    i0 = np.minimum(np.maximum(np.floor(v), np.float32(0)), res - np.float32(2))
+    f = v - i0
+    i0 = i0.astype(np.int64)
+    base = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+    w = [(1 - f[:, a:a + 1], f[:, a:a + 1]) for a in range(3)]
+    gv = ct * inb[:, None]
+    rows = np.concatenate([base + (k >> 2) * Y * Z + ((k >> 1) & 1) * Z + (k & 1)
+                           for k in range(8)])
+    vals = np.concatenate([w[0][k >> 2] * w[1][(k >> 1) & 1] * w[2][k & 1] * gv
+                           for k in range(8)])
+    out = np.zeros((X * Y * Z, ct.shape[1]), np.float32)
+    np.add.at(out, rows, vals)
+    return out.reshape(*GRES, -1)
+
+
+@pytest.mark.parametrize("seed", [0, 3, "cluster"])
+def test_scatter_plain_sums_in_corner_then_sample_order(seed):
+    """The plain scatter on the CPU equals np.add.at over (corner, sample)
+    ordered rows bit for bit: the order trilinear_grad_kernel follows on the
+    card (csrc/trilinear_grad.cu), pinned."""
+    _, pts, rng, _ = _scatter_case(seed)
+    ct = rng.randn(len(pts), C).astype(np.float32)
+    got = trilinear_scatter_grad_plain(t(ct), t(MINB), t(MAXB), GRES, t(pts))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(_numpy_scatter(ct, pts)))
+
+
+def _kernel_order_scatter(ct, mn, mx, pts):
+    """trilinear_grad_kernel's sums on the CPU from the wrapper's binning:
+    the keys and corner weights as trilinear_grad_keys computes them, then
+    ``bins`` (the stable sort and the column starts); each output row adds,
+    corner by corner, the run of its base cell (x-a, y-b, z-c), from the
+    first sorted positions of the clamped cells z - c and z - c + 1 inside
+    the column's range, in sorted order, from +0.0."""
+    X, Y, Z = GRES
+    i0, frac, inb = _corner_setup(GRES, mn, mx, pts)
+    keys = torch.where(inb, (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2], X * Y * Z).int()
+    w = [(1 - frac[:, a:a + 1], frac[:, a:a + 1]) for a in range(3)]
+    weights = torch.cat([w[0][k >> 2] * w[1][(k >> 1) & 1] * w[2][k & 1] for k in range(8)], 1)
+    sorted_keys, perm, col_start = bins(keys, GRES)
+    g_sorted, w_sorted = ct.index_select(0, perm), weights.index_select(0, perm)
+    x, y, z = (a.reshape(-1) for a in torch.meshgrid(
+        torch.arange(X), torch.arange(Y), torch.arange(Z), indexing="ij"))
+    out = torch.zeros((X * Y * Z, ct.shape[1]))
+    for k in range(8):
+        cx, cy, zb = x - (k >> 2), y - ((k >> 1) & 1), z - (k & 1)
+        ok = (cx >= 0) & (cy >= 0)
+        col = cx.clamp(min=0) * Y + cy.clamp(min=0)
+
+        def first(zq):
+            want = (col * Z + zq.clamp(0, Z - 1)).int()
+            pos = torch.searchsorted(sorted_keys, want).int()
+            return torch.where(ok, pos.clamp(col_start[col], col_start[col + 1]), 0)
+
+        lo, hi = first(zb), first(zb + 1)
+        for j in range(int((hi - lo).max())):
+            m = hi - lo > j
+            out[m] = out[m] + w_sorted[lo[m] + j, k:k + 1] * g_sorted[lo[m] + j]
+    return out.reshape(*GRES, -1), sorted_keys, perm
+
+
+@pytest.mark.parametrize("seed", [0, 3, "cluster"])
+def test_scatter_kernel_order_matches_plain(seed):
+    """The kernel's order, from the wrapper's own binning, equals the plain
+    version bit for bit on points inside, on and outside the box, and on
+    1,500 points in one cell: samples outside the box sort past every
+    cell, and the stable sort keeps each cell's samples in sample order."""
+    _, pts, rng, _ = _scatter_case(seed)
+    ct = t(rng.randn(len(pts), C).astype(np.float32))
+    got, sorted_keys, perm = _kernel_order_scatter(ct, t(MINB), t(MAXB), t(pts))
+    want = trilinear_scatter_grad_plain(ct, t(MINB), t(MAXB), GRES, t(pts))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    assert bool((sorted_keys[1:] >= sorted_keys[:-1]).all())
+    same = sorted_keys[1:] == sorted_keys[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())
 
 
 # --------------------------------------------------------------------------

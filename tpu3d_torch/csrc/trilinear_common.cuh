@@ -1,24 +1,22 @@
 // The corner setup shared by trilinear_kernel (trilinear.cu) and its
-// backward, trilinear_grad_kernel (trilinear_grad.cu): one definition, so
-// that the scatter provably hits the cells the gather read, with the same
-// fractions.
+// backward's keys pass, trilinear_grad_keys (trilinear_grad.cu): one
+// definition, so that the scatter provably hits the cells the gather read,
+// with the same fractions.
 //
 // tpu3d's _corner_setup order (dense/grid.py:74-83), each operation rounded
 // on its own (IEEE division, no FMA contraction), as the plain PyTorch
 // version (kernels/trilinear.py::_corner_setup):
 //   u = (p - min) / (max - min), in = all(0 <= u <= 1), v = u * (res - 1),
 //   i0 = clip(floor v, 0, res - 2), f = v - i0.
-// corner_axis is that arithmetic for one axis. The backward runs all three
-// per thread (corner_setup); the forward runs one per lane and shares the
-// results across a sample's lanes.
+// corner_axis is that arithmetic for one axis. The keys pass runs all
+// three per thread (corner_setup); the forward runs one per lane and shares
+// the results across a sample's lanes.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tpu3d {
-
-constexpr int kWarpsPerBlock = 8;   // trilinear_grad_kernel's block
 
 struct Corner {
   int64_t base;   // row index of corner (0, 0, 0) in the (X*Y*Z, C) view

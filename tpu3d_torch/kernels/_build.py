@@ -38,8 +38,10 @@ _SIGNATURES = {
     "tpu3d_top2": [ctypes.c_char_p],
     # one packed block of arguments (TrilinearArgs), built by the wrapper
     "tpu3d_trilinear": [ctypes.c_char_p],
-    # g, min_bound, max_bound, pts, out, X, Y, Z, C, N, vec, stream
-    "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P],
+    # min_bound, max_bound, pts, keys, weights, X, Y, Z, N, stream
+    "tpu3d_trilinear_grad_keys": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_int64, _P],
+    # g, weights, sorted keys, perm, col_start, out, X, Y, Z, C, vec, stream
+    "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # one packed block of arguments (OrientDescArgs), built by the wrapper
     "tpu3d_orient_desc": [ctypes.c_char_p],
 }
