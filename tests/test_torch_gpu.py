@@ -614,6 +614,120 @@ def test_multi_step_graph_matches_eager_on_the_card(cuda, gen, option):
     assert (pb - grid).abs().max().item() > 1e-3
 
 
+def _marks_problem(cuda, gen, n_rays=16 * 256):
+    """A 16^3 grid trained by fused Adam on rays into its box: the config,
+    the state's grid and box, and the rays with their order."""
+    from tpu3d_torch.config import DenseConfig
+
+    cfg = DenseConfig(grid_resolution=16, batch_size=256, num_samples=16, near=0.5, far=4.0,
+                      scan_chunk=4)
+    grid = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.3
+    lo, hi = torch.full((3,), -1.5, device=cuda), torch.full((3,), 1.5, device=cuda)
+    o = torch.zeros((n_rays, 3), device=cuda)
+    o[:, 0] = -2.0
+    d = torch.nn.functional.normalize(torch.randn((n_rays, 3), generator=gen, device=cuda) * 0.4
+                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
+    rgb = torch.rand((n_rays, 3), generator=gen, device=cuda)
+    perm = torch.randperm(n_rays, generator=gen, device=cuda)
+    return cfg, grid, lo, hi, (o, d, rgb), perm
+
+
+@pytest.fixture
+def traced(monkeypatch):
+    """A fresh global tracer with tracing on."""
+    from tpu3d_torch.utils import trace
+
+    monkeypatch.setattr(trace, "_GLOBAL", None)
+    monkeypatch.setattr(trace, "_ENABLED", True)
+    return trace.get_tracer()
+
+
+def test_multi_step_marks_read_and_bit_equal(cuda, gen, traced):
+    """make_multi_step traced on the card against the same steps called one
+    by one: chunks of 4 (eager, captured and replayed, replayed), a sync
+    between the last two. The captured graph holds one optimizer mark pair
+    a step; each replay read after the sync gives its chunk span k
+    ``dense.optimizer`` device spans (the eager chunk k of its own), each a
+    positive device time inside its replay's; ``dense.marks_read`` counts
+    them. Losses, grid and moments equal the untraced eager steps' bit for
+    bit."""
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.utils import trace
+
+    cfg, grid, lo, hi, (o, d, rgb), perm = _marks_problem(cuda, gen)
+    states, losses = [], []
+    for graphed in (False, True):
+        st = TT.init_state(cfg, VoxelGrid(grid.clone(), lo, hi), 16)
+        g = torch.Generator(device=cuda)
+        g.manual_seed(5)
+        multi = TT.make_multi_step(TT.train_step, with_occ=True)
+        out = []
+        for b in (0, 4, 8):
+            block = perm[b * 256:(b + 4) * 256].view(4, 256)
+            if graphed:
+                out.append(multi(st, cfg, block, o, d, rgb, generator=g))
+                torch.cuda.synchronize()
+            else:
+                was = trace.enable(False)
+                out += [TT.train_step(st, cfg, o[ix], d[ix], rgb[ix], generator=g)[None]
+                        for ix in block]
+                trace.enable(was)
+        if graphed:
+            assert len(multi.graphs[4].marks) == 4
+            multi.release()
+        states.append(st)
+        losses.append(torch.cat(out).cpu())
+    assert torch.equal(losses[1], losses[0])
+    a, b = states
+    for x, y in [(a.grid.grid, b.grid.grid)] + [
+            (a.optimizer.state[a.grid.grid][k], b.optimizer.state[b.grid.grid][k])
+            for k in a.optimizer.state[a.grid.grid]]:
+        assert torch.equal(y, x)
+
+    spans = traced.spans()
+    chunks = [s for s in spans if s["name"] == "dense.chunk"]
+    assert [s["args"]["mode"] for s in chunks] == ["eager", "capture", "replay"]
+    assert traced.summary()["counters"] == {"dense.marks_read": 2.0}
+    for chunk in chunks:
+        opt = [s for s in spans if s["name"] == "dense.optimizer" and s["parent"] == chunk["id"]]
+        assert len(opt) == 4 and all(s["dur"] > 0 and s["cat"] == "device" for s in opt)
+        if chunk["args"]["mode"] != "eager":
+            (rep,) = [s for s in spans if s["name"] == "dense.replay"
+                      and s["parent"] == chunk["id"]]
+            assert sum(s["dur"] for s in opt) < rep["dur"]
+
+
+def test_multi_step_marks_overwritten_before_done_are_missed(cuda, gen, traced):
+    """An armed replay whose marks the card has not reached when the next
+    chunk is called (the stream held back by a sleep) counts as missed, the
+    others as read; no chunk waits for the card."""
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    cfg, grid, lo, hi, (o, d, rgb), perm = _marks_problem(cuda, gen)
+    st = TT.init_state(cfg, VoxelGrid(grid.clone(), lo, hi), 16)
+    multi = TT.make_multi_step(TT.train_step, with_occ=True)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+
+    def chunk(b):
+        return multi(st, cfg, perm[b * 256:(b + 4) * 256].view(4, 256), o, d, rgb, generator=g)
+
+    chunk(0)
+    chunk(4)                        # captured and replayed: armed
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    chunk(8)                        # reads the capture's replay; armed behind the sleep
+    chunk(12)                       # the previous replay has not run yet: missed
+    torch.cuda.synchronize()
+    multi.release()                 # reads the last
+    assert traced.summary()["counters"] == {"dense.marks_read": 2.0, "dense.marks_missed": 1.0}
+    modes = {s["id"]: s["args"]["mode"] for s in traced.spans() if s["name"] == "dense.chunk"}
+    parents = [modes.get(s["parent"]) for s in traced.spans() if s["name"] == "dense.optimizer"]
+    assert sorted(parents, key=str) == ["capture"] * 4 + ["eager"] * 4 + ["replay"] * 4
+
+
 def test_render_image_on_the_card(cuda, gen):
     """render_image through the kernel against the same render on the CPU."""
     from tpu3d_torch.dense.grid import VoxelGrid

@@ -67,10 +67,13 @@ sequential edges while the others extract (``prematch.npz``, which
 ``densify --mesh auto|DxM`` trains on the ray-DP x voxel-brick-TP mesh.
 
 Tracing: ``--trace PATH`` runs the command inside a span named after it
-(the pipeline's stages inside it) and writes the spans as a Chrome trace to
-PATH, with their summary (``spans``, ``counters``) on stderr;
+(the pipeline's stages inside it), turns on the dense path's hot spans
+(training chunks, render views and their phases) and device spans (the
+optimizer's card time, inside graph replays too), and writes the spans as a
+Chrome trace to PATH, with their summary (``spans``, ``counters``) on stderr;
 ``--xprof DIR`` runs the command under torch.profiler (CPU activity, and
-CUDA activity on the card) and writes its Chrome trace into DIR. The sparse
+CUDA activity on the card), with the hot spans as ``tpu3d.*`` ranges, and
+writes its Chrome trace into DIR. The sparse
 commands print tpu3d's ``dispatches: {...}`` line, the counts of
 utils/dispatch.py: the host's waits for the card, per site.
 
@@ -1250,9 +1253,9 @@ def parser() -> argparse.ArgumentParser:
                    "export: destination (default ARTIFACTS/output); mesh: PLY path (default "
                    "ARTIFACTS/mesh.ply); ingest: .npz path (default the checkpoint's)")
     p.add_argument("--trace", default="",
-                   help="write a Chrome-trace JSON of the command's and its stages' spans "
-                        "(chrome://tracing or Perfetto) and print a span summary to stderr "
-                        "(utils/trace.py)")
+                   help="write a Chrome-trace JSON of the command's and its stages' spans, "
+                        "and the dense path's hot and device spans, (chrome://tracing or "
+                        "Perfetto) and print a span summary to stderr (utils/trace.py)")
     p.add_argument("--xprof", default="",
                    help="run the command under torch.profiler (CPU, and CUDA on the card) and "
                         "write its Chrome trace into this directory")
@@ -1277,9 +1280,13 @@ def traced(command: str, fn, trace: str = "", xprof: str = "", device="cuda"):
     spans nest in it); with ``xprof`` under torch.profiler (CPU activity,
     and CUDA activity when ``device`` is the card), its Chrome trace written
     into that directory; with ``trace`` the spans written to that path as a
-    Chrome trace and their summary printed to stderr. Returns fn's result."""
-    from tpu3d_torch.utils.trace import get_tracer
+    Chrome trace and their summary printed to stderr; ``trace`` also turns
+    on the dense path's hot and device spans (utils/trace.py), which the
+    profiler of ``xprof`` records as ``tpu3d.*`` ranges. Returns fn's
+    result."""
+    from tpu3d_torch.utils.trace import enable, get_tracer
 
+    was = enable(True) if trace else None
     prof = None
     if xprof:
         from torch.profiler import ProfilerActivity, profile
@@ -1300,6 +1307,7 @@ def traced(command: str, fn, trace: str = "", xprof: str = "", device="cuda"):
             prof.export_chrome_trace(path)
             print(f"device trace written to {path}", file=sys.stderr)
         if trace:
+            enable(was)
             tr = get_tracer()
             tr.export_chrome_trace(trace)
             print(json.dumps(tr.summary()), file=sys.stderr)

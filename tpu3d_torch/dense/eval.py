@@ -18,6 +18,7 @@ from tpu3d_torch.core import lie
 from tpu3d_torch.dense.grid import VoxelGrid
 from tpu3d_torch.dense.render import render_image
 from tpu3d_torch.dense.train import RayDataset, SceneNormalization, psnr, rays_from_cameras
+from tpu3d_torch.utils.trace import hot_span
 
 
 def split_views(n_views: int, holdout_every: int = 8) -> Tuple[np.ndarray, np.ndarray]:
@@ -54,18 +55,20 @@ def view_rays(cam: np.ndarray, H: int, W: int, focal: float,
               norm: Optional[SceneNormalization] = None,
               stride: int = 1) -> Tuple[np.ndarray, np.ndarray]:
     """Ray grid of one camera: (origins (P, 3), dirs (P, 3)) in the
-    normalized frame, row-major pixel order."""
-    ys, xs = np.meshgrid(np.arange(0, H, stride), np.arange(0, W, stride), indexing="ij")
-    u = xs.reshape(-1).astype(np.float32) - W / 2.0
-    v = -(ys.reshape(-1).astype(np.float32) - H / 2.0)
-    d_cam = np.stack([u / focal, v / focal, np.ones_like(u)], axis=-1)
-    R = lie.so3_exp_np(cam[:3])
-    o = -R.T @ cam[3:6]
-    d = d_cam @ R
-    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-    if norm is not None:
-        o = norm.apply(o)
-    return np.broadcast_to(o.astype(np.float32), d.shape).copy(), d
+    normalized frame, row-major pixel order. The hot span
+    ``render.ray_build``."""
+    with hot_span("render.ray_build"):
+        ys, xs = np.meshgrid(np.arange(0, H, stride), np.arange(0, W, stride), indexing="ij")
+        u = xs.reshape(-1).astype(np.float32) - W / 2.0
+        v = -(ys.reshape(-1).astype(np.float32) - H / 2.0)
+        d_cam = np.stack([u / focal, v / focal, np.ones_like(u)], axis=-1)
+        R = lie.so3_exp_np(cam[:3])
+        o = -R.T @ cam[3:6]
+        d = d_cam @ R
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+        if norm is not None:
+            o = norm.apply(o)
+        return np.broadcast_to(o.astype(np.float32), d.shape).copy(), d
 
 
 def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
@@ -75,16 +78,24 @@ def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
                 rays: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                 base_grid: Optional[VoxelGrid] = None) -> np.ndarray:
     """One full camera view on the grid's device -> (H', W', 3) float
-    numpy. rays: optional precomputed (origins, dirs) from view_rays."""
-    ro, rd = rays if rays is not None else view_rays(cam, H, W, focal, norm, stride)
-    dev = grid.grid.device
-    img = render_image(grid, torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev),
-                       cfg.near, cfg.far, cfg.num_samples, chunk=chunk,
-                       clip_aabb=cfg.per_ray_aabb, bg_sh=bg_sh,
-                       contract=cfg.contraction, base_grid=base_grid)
+    numpy. rays: optional precomputed (origins, dirs) from view_rays.
+    The hot span ``render.view`` (``rays``, ``chunks``), around the ray
+    build, ``render.upload`` (the rays to the device), ``render.enqueue``
+    (render_image's chunks) and ``render.image_copy`` (the image to the
+    host, where the host waits for the card)."""
     h = len(range(0, H, stride))
     w = len(range(0, W, stride))
-    return img.cpu().numpy().reshape(h, w, 3)
+    with hot_span("render.view", rays=h * w, chunks=-(-h * w // chunk)):
+        ro, rd = rays if rays is not None else view_rays(cam, H, W, focal, norm, stride)
+        dev = grid.grid.device
+        with hot_span("render.upload"):
+            ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+        with hot_span("render.enqueue"):
+            img = render_image(grid, ro, rd, cfg.near, cfg.far, cfg.num_samples, chunk=chunk,
+                               clip_aabb=cfg.per_ray_aabb, bg_sh=bg_sh,
+                               contract=cfg.contraction, base_grid=base_grid)
+        with hot_span("render.image_copy"):
+            return img.cpu().numpy().reshape(h, w, 3)
 
 
 def fit_view_exposure(pred: np.ndarray, gt: np.ndarray) -> np.ndarray:

@@ -35,6 +35,7 @@ from tpu3d_torch.dense.sdf import ray_aabb
 from tpu3d_torch.io.ply import filter_point_cloud
 from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.utils.cuda_graph import capture
+from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span
 
 
 class RayDataset(NamedTuple):
@@ -442,7 +443,8 @@ def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
         lr = state.lr.on_device(state.count)
         for group in state.optimizer.param_groups:
             group["lr"].copy_(lr)
-    state.optimizer.step()
+    with device_span("dense.optimizer"):
+        state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.count.add_(1)
     state.step += 1
@@ -617,20 +619,30 @@ def _chunk_plan(steps_per_epoch: int, chunk: int) -> List[Tuple[int, int]]:
 
 class _Graph(NamedTuple):
     """One captured chunk length: the graph, its static (k, B) index block,
-    its (k,) losses, the kernel launches its capture recorded, and the
-    addresses of the tensors it reads."""
+    its (k,) losses, the kernel launches its capture recorded, the
+    addresses of the tensors it reads, and the (name, start, end) event
+    pairs of the device spans it records (utils/trace.py ``graph_marks``:
+    ``dense.optimizer`` around each step's optimizer)."""
     graph: "torch.cuda.CUDAGraph"
     idx: torch.Tensor
     losses: torch.Tensor
     launches: Dict[str, int]
     inputs: Tuple[int, ...]
+    marks: Tuple[tuple, ...]
 
 
 class MultiStep:
     """What :func:`make_multi_step` returns: a callable that runs one chunk
     of training steps. ``replays``, ``eager_chunks`` and
     ``capture_seconds`` record how the chunks ran; :meth:`release` drops
-    the graphs and their memory pool."""
+    the graphs and their memory pool.
+
+    Each call is the hot span ``dense.chunk`` (``k``, ``mode`` "eager",
+    "capture" or "replay"). A replay enqueued while tracing is on is
+    armed: at the next call (or :meth:`release`), before another replay
+    rewrites its events, its graph marks are read into the tracer under its
+    chunk span if the card has finished them (counter ``dense.marks_read``),
+    else it counts as ``dense.marks_missed``."""
 
     def __init__(self, step_fn: Callable, with_occ: bool):
         self.step_fn, self.with_occ = step_fn, with_occ
@@ -639,6 +651,7 @@ class MultiStep:
         self.pool = None
         self.replays = self.eager_chunks = 0
         self.capture_seconds: List[float] = []
+        self._armed = None      # (marks, chunk span, event before the replay)
 
     def _steps(self, state, cfg, idx, rays, generator, noise, kw) -> torch.Tensor:
         """The chunk's steps, one ``step_fn`` call each, over the rows of
@@ -666,31 +679,49 @@ class MultiStep:
         j-th step. Returns the (k,) losses on the device. ``occ`` must be
         updated in place between chunks: a replay reads the tensor its
         capture saw."""
+        self._read_marks()
         kw = dict(occ=occ, base=base) if self.with_occ else {}
         rays = (o_all, d_all, rgb_all, cid_all)
         k = idx.shape[0]
-        if not idx.is_cuda or (k not in self.graphs and k not in self.warm):
-            self.warm.add(k)
-            self.eager_chunks += 1
-            return self._steps(state, cfg, idx, rays, generator, noise, kw)
-        inputs = tuple(t.data_ptr() for t in (*rays, occ, None if base is None else base.grid)
-                       if t is not None)
-        g = self.graphs.get(k)
-        if g is None:
-            static = torch.empty_like(idx)
-            g = self.graphs[k] = self._capture(
-                lambda: self._steps(state, cfg, static, rays, generator, noise, kw), state,
-                static, generator, inputs)
-        elif g.inputs != inputs:
-            raise RuntimeError("make_multi_step: a chunk's rays, occupancy or base are not "
-                               "the tensors its graph was captured with")
-        g.idx.copy_(idx)
-        g.graph.replay()
+        eager = not idx.is_cuda or (k not in self.graphs and k not in self.warm)
+        mode = "eager" if eager else "replay" if k in self.graphs else "capture"
+        with hot_span("dense.chunk", k=k, mode=mode) as span:
+            if eager:
+                self.warm.add(k)
+                self.eager_chunks += 1
+                return self._steps(state, cfg, idx, rays, generator, noise, kw)
+            inputs = tuple(t.data_ptr() for t in (*rays, occ, None if base is None else base.grid)
+                           if t is not None)
+            g = self.graphs.get(k)
+            if g is None:
+                static = torch.empty_like(idx)
+                g = self.graphs[k] = self._capture(
+                    lambda: self._steps(state, cfg, static, rays, generator, noise, kw), state,
+                    static, generator, inputs)
+            elif g.inputs != inputs:
+                raise RuntimeError("make_multi_step: a chunk's rays, occupancy or base are not "
+                                   "the tensors its graph was captured with")
+            g.idx.copy_(idx)
+            with device_span("dense.replay") as origin:
+                g.graph.replay()
+            if span is not None and g.marks:
+                self._armed = (g.marks, span, origin)
         for name, n in g.launches.items():
             LAUNCHES[name] += n
         state.step += k
         self.replays += 1
         return g.losses.clone()     # the graph's own buffer is rewritten by its next replay
+
+    def _read_marks(self) -> None:
+        """Read the armed replay's graph marks, if the card has finished
+        them (never waits)."""
+        if self._armed is None:
+            return
+        marks, span, origin = self._armed
+        self._armed = None
+        tr = get_tracer()
+        tr.count("dense.marks_read" if tr.read_marks(marks, span, origin)
+                 else "dense.marks_missed")
 
     def _capture(self, steps: Callable[[], torch.Tensor], state: TrainState,
                  static: torch.Tensor, generator: Optional[torch.Generator],
@@ -702,20 +733,24 @@ class MultiStep:
         step0, before = state.step, dict(LAUNCHES)
         out = []
         t0 = time.time()
-        graph = capture(lambda: out.append(steps()), [] if generator is None else [generator],
-                        self.pool, static.device)
+        with graph_marks() as marks:
+            graph = capture(lambda: out.append(steps()), [] if generator is None else [generator],
+                            self.pool, static.device)
         self.capture_seconds.append(time.time() - t0)
         self.pool = self.pool or graph.pool()
         launches = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
         LAUNCHES.update(before)
         state.step = step0
-        return _Graph(graph, static, out[0], launches, inputs)
+        return _Graph(graph, static, out[0], launches, inputs, tuple(marks))
 
     def release(self) -> None:
         """Drop the captured graphs and hand their memory pool back to the
-        card, for the next phase."""
+        card, for the next phase (after reading an armed replay's marks)."""
+        self._read_marks()
         captured = bool(self.graphs)
-        self.graphs.clear()
+        marks = [g.marks for g in self.graphs.values()]
+        self.graphs.clear()     # the graphs go before the events their nodes record
+        del marks
         self.pool = None
         if captured:
             torch.cuda.empty_cache()
@@ -776,18 +811,22 @@ class _LossLog:
     of an epoch, read back from its chunk's (k,) device losses (tpu3d's
     ``loss_chunk``) into ``losses``, and recorded in ``entries`` with its
     epoch, step, update count and seconds since the log began; printed
-    after ``prefix`` unless it is None."""
+    after ``prefix`` unless it is None, with the loop's rays/s so far: its
+    steps since the log began (the read-back waits for the whole chunk)
+    times the batch, over those seconds."""
 
     def __init__(self, losses: List[float], log_every: int, batch: int, steps_per_epoch: int,
                  prefix: Optional[str]):
         self.losses, self.entries = losses, []
         self.log_every, self.batch, self.steps_per_epoch = log_every, batch, steps_per_epoch
         self.prefix = prefix
+        self.steps = 0      # the loop's steps so far, the current chunk's included
         self.t0 = time.time()
 
     def chunk(self, lc: torch.Tensor, b: int, epoch: int, updates: int) -> None:
         """The chunk of steps b, b + 1, ... that ends at update ``updates``."""
         k = lc.shape[0]
+        self.steps += k
         for j in range(b, b + k):
             if j % self.log_every:
                 continue
@@ -796,7 +835,7 @@ class _LossLog:
             self.entries.append({"epoch": epoch, "step": j, "update": updates - (b + k - 1 - j),
                                  "loss": lv, "seconds": time.time() - self.t0})
             if self.prefix is not None:
-                rate = (j + 1) * self.batch / (time.time() - self.t0)
+                rate = self.steps * self.batch / (time.time() - self.t0)
                 print(f"{self.prefix} epoch {epoch} step {j}/{self.steps_per_epoch} "
                       f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
 
