@@ -1122,6 +1122,56 @@ def _check_orient_desc(torch, dev, scene, cfg) -> dict:
                 else "operations")
 
 
+def _check_rmsprop(torch, dev) -> dict:
+    """rmsprop_kernel against its plain version at the detail grid's
+    shape (256^3 x 28), on the same inputs on the card, the lr a 0-d device
+    tensor: nu bit for bit, p within one ulp (the largest difference in
+    ulps is printed), and a second launch on copies of the inputs the same
+    bits. The timed calls update one set of tensors in place (the same
+    bytes whatever the values)."""
+    from tpu3d_torch.kernels.rmsprop import rmsprop_update, rmsprop_update_plain
+
+    shape, decay, eps = (256, 256, 256, 28), 0.95, 1e-8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    g = torch.randn(shape, generator=gen, device=dev) * 1e-2
+    g[::7] = 0.0
+    p0 = torch.randn(shape, generator=gen, device=dev) * 0.3
+    nu0 = torch.rand(shape, generator=gen, device=dev) * 1e-4
+    lr = torch.tensor(1e-2, device=dev)
+    p, nu = p0.clone(), nu0.clone()
+    rmsprop_update_plain(p, g, nu, lr, decay, eps)
+    outs = []
+    for _ in range(2):
+        pk, nk = p0.clone(), nu0.clone()
+        rmsprop_update(pk, g, nk, lr, decay, eps)
+        outs.append((pk, nk))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    pk, nk = outs[0]
+    ulp = torch.nextafter(p.abs(), torch.tensor(float("inf"), device=dev)) - p.abs()
+    p_ulps = float(((pk - p).abs() / ulp).max())
+    nu_equal, p_equal = torch.equal(nk, nu), torch.equal(pk, p)
+    err = float((pk - p).abs().max())
+    if not (same and nu_equal and p_ulps <= 1.0):
+        _fail(f"rmsprop_kernel: two launches bit for bit {same}, nu bit for bit {nu_equal}, "
+              f"p within {p_ulps} ulp (1 allowed)")
+    row = dict(_times(torch, lambda: rmsprop_update(p, g, nu, lr, decay, eps), 10),
+               **_times(torch, lambda: rmsprop_update_plain(p, g, nu, lr, decay, eps), 3,
+                        "plain_"), **_NO_LIBRARY)
+    # Bound, by bytes: g, nu and p read once, nu and p written once.
+    nbytes = 5 * 4 * g.numel()
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ms = row["ms"] or row["wall_ms"]
+    print(f"kernel rmsprop_kernel grid {'x'.join(map(str, shape))}: against the plain version "
+          f"on the card nu bit for bit {'yes' if nu_equal else 'NO'}, p bit for bit "
+          f"{'yes' if p_equal else 'no'} (max_abs_err={err:.3g}, {p_ulps:g} ulp); two launches "
+          f"bit for bit {'yes' if same else 'NO'}; bound_ms={bound_ms:.4f} "
+          f"({nbytes / ms / 1e6:.0f} GB/s); " + _fmt_times(row), flush=True)
+    return dict(row, name="rmsprop_kernel", route="cuda", source="tpu3d_torch/csrc/rmsprop.cu",
+                replaces=None, max_abs_err=err, bound_ms=bound_ms, bound_by="bytes")
+
+
 def _align(cams, R_gt, t_gt):
     """Camera-centre errors (relative to the spread of the scene's centres)
     and rotation errors (deg) of [rvec|t] cameras after the similarity that
@@ -1698,12 +1748,13 @@ def _step_groups(per_kernel: dict, steps: int) -> dict:
     """Device ms per step by kernel family, from _device_ms over ``steps``
     steps."""
     groups = {"trilinear_kernel": 0.0, "trilinear_grad_kernel": 0.0, "fill": 0.0,
-              "adam": 0.0, "other": 0.0}
+              "adam": 0.0, "rmsprop": 0.0, "other": 0.0}
     for name, ms in per_kernel.items():
         low = name.lower()
         key = ("trilinear_grad_kernel" if "trilinear_grad" in name
                else "trilinear_kernel" if "trilinear_kernel" in name
                else "adam" if "adam" in low
+               else "rmsprop" if "rmsprop" in low
                else "fill" if "fill" in low or "memset" in low else "other")
         groups[key] += ms / steps
     return groups
@@ -1713,7 +1764,7 @@ def _fmt_groups(groups: dict) -> str:
     return (f"forward trilinear_kernel {groups['trilinear_kernel']:.3f}, scatter "
             f"trilinear_grad_keys + trilinear_grad_kernel {groups['trilinear_grad_kernel']:.3f} "
             f"(its sort and offsets under other), fills {groups['fill']:.3f}, Adam "
-            f"{groups['adam']:.3f}, elementwise and other (RMSprop's update among them) "
+            f"{groups['adam']:.3f}, RMSprop {groups['rmsprop']:.3f}, elementwise and other "
             f"{groups['other']:.3f}")
 
 
@@ -1983,7 +2034,7 @@ def _run_recipe(torch, dev, scene, root, cfg, ds) -> dict:
     tr_gain = [y - x for x, y in zip(tr[0]["per_view"], tr[1]["per_view"])]
     want = {"trilinear_kernel": 2 * steps["coarse"] + 2 * steps["fine"] + 4 * steps["detail"]
             + 2 * _eval_chunks(len(out["test_view_names"])),
-            "trilinear_grad_kernel": sum(steps.values())}
+            "trilinear_grad_kernel": sum(steps.values()), "rmsprop_kernel": steps["detail"]}
     print(f"recipe: densify {secs:.3f} s (three phases, grid saves and the pair's eval); "
           + "; ".join(_phase_summary(p, 2048) for p in phases)
           + f"; detail grid {cd['res']} over {np.round(cd['min_bound'], 4).tolist()}.."
@@ -3241,7 +3292,7 @@ def main(argv=()) -> int:
                        _check_trilinear(torch, dev, scene, dense, train_cfg, train_ds,
                                         recipe_cfg, recipe_ds),
                        _check_trilinear_grad(torch, dev, train_cfg, train_ds),
-                       _check_orient_desc(torch, dev, scene, full_cfg)]
+                       _check_orient_desc(torch, dev, scene, full_cfg), _check_rmsprop(torch, dev)]
         del dense
         torch.cuda.empty_cache()
 
@@ -3259,7 +3310,9 @@ def main(argv=()) -> int:
             launches.update(trilinear_kernel=train["trilinear_kernel"],
                             trilinear_grad_kernel=train["trilinear_grad_kernel"])
             _profile_train_step(torch, dev, train_cfg, train_ds)
-            _run_recipe(torch, dev, scene, str(roots["recipe"]), recipe_cfg, recipe_ds)
+            # The RMSprop row reports the recipe (its detail phase).
+            launches["rmsprop_kernel"] = _run_recipe(torch, dev, scene, str(roots["recipe"]),
+                                                     recipe_cfg, recipe_ds)["rmsprop_kernel"]
             _run_options(torch, dev, scene, str(roots["options"]))
             # The orient_desc row reports the fused full run (the only path
             # that launches it).

@@ -328,6 +328,114 @@ def test_scatter_and_train_step_repeat_bit_for_bit(cuda, gen):
                            b.view(torch.int32) if b.dtype == torch.float32 else b)
 
 
+def _rmsprop_inputs(cuda, gen, shape):
+    """p, a gradient with every fifth element zero, and a second moment
+    with every third element zero (nu + eps at its smallest)."""
+    g = torch.randn(shape, generator=gen, device=cuda) * 0.05
+    g.view(-1)[::5] = 0.0
+    p = torch.randn(shape, generator=gen, device=cuda)
+    nu = torch.rand(shape, generator=gen, device=cuda) * 1e-3
+    nu.view(-1)[::3] = 0.0
+    return p, g, nu
+
+
+def _offset_copy(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` floats past
+    the start of its allocation (the allocator's blocks are 512-B aligned)."""
+    out = torch.empty(t.numel() + offset, device=t.device)[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("shape, offsets", [((8, 16, 16, 28), (0, 0, 0)),
+                                            ((1_000_003,), (0, 0, 0)),
+                                            ((4099,), (1, 1, 1)), ((4099,), (1, 2, 3))],
+                         ids=["grid", "ragged_tail", "head_peel", "unaligned_scalar"])
+@pytest.mark.parametrize("lr_kind", ["tensor", "float"])
+def test_rmsprop_kernel_matches_plain(cuda, gen, shape, offsets, lr_kind):
+    """rmsprop_kernel against rmsprop_update_plain on the same card inputs,
+    the lr a 0-d device tensor or a Python float: the detail grid's layout;
+    1,000,003 elements (a ragged tail of 3 after the vectors); p, g and nu
+    starting 4 bytes past a 16-byte boundary (a head of 3 scalar elements);
+    p, g and nu at different offsets within 16 bytes (every element
+    scalar). nu bit for bit; p within one ulp (the kernel subtracts the
+    rounded product s * g, torch's addcmul may contract it into an FMA). On
+    an H100 with torch 2.11 p held bit for bit too. Two launches on fresh
+    copies give the same bits, and each counts one launch."""
+    from tpu3d_torch.kernels.rmsprop import rmsprop_update, rmsprop_update_plain
+
+    p, g, nu = _rmsprop_inputs(cuda, gen, shape)
+    lr = torch.tensor(0.01, device=cuda) if lr_kind == "tensor" else 0.01
+    ref_p, ref_nu = p.clone(), nu.clone()
+    rmsprop_update_plain(ref_p, g, ref_nu, lr, 0.95, 1e-8)
+    before = LAUNCHES["rmsprop_kernel"]
+    outs = []
+    for _ in range(2):
+        pk, gk, nk = (_offset_copy(t, k) for t, k in zip((p, g, nu), offsets))
+        assert [t.data_ptr() % 16 for t in (pk, gk, nk)] == [4 * k % 16 for k in offsets]
+        rmsprop_update(pk, gk, nk, lr, 0.95, 1e-8)
+        outs.append((pk, nk))
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsprop_kernel"] == before + 2
+    (pa, na), (pb, nb) = outs
+    assert torch.equal(pa.view(torch.int32), pb.view(torch.int32))
+    assert torch.equal(na.view(torch.int32), nb.view(torch.int32))
+    assert torch.equal(na.view(torch.int32), ref_nu.view(torch.int32))
+    ulp = torch.nextafter(ref_p.abs(), torch.full_like(ref_p, float("inf"))) - ref_p.abs()
+    assert bool(((pa - ref_p).abs() <= ulp).all())
+    assert (pa - p).abs().max().item() > 1e-3
+
+
+def test_rmsprop_kernel_in_a_cuda_graph(cuda, gen):
+    """One update captured in a CUDA graph, the lr a 0-d device tensor,
+    then replayed twice after the lr has changed: each replay equals the
+    eager update at the lr it found, bit for bit (the kernel reads the lr
+    on the device)."""
+    from tpu3d_torch.kernels.rmsprop import rmsprop_update
+    from tpu3d_torch.utils.cuda_graph import capture
+
+    p0, g, nu0 = _rmsprop_inputs(cuda, gen, (8, 16, 16, 28))
+    lr = torch.tensor(0.01, device=cuda)
+    p, nu = p0.clone(), nu0.clone()
+    rmsprop_update(p0.clone(), g, nu0.clone(), lr, 0.95, 1e-8)   # eager first, as a warm-up chunk
+    graph = capture(lambda: rmsprop_update(p, g, nu, lr, 0.95, 1e-8))
+    torch.cuda.synchronize()
+    assert torch.equal(p, p0) and torch.equal(nu, nu0)
+    ref_p, ref_nu = p0.clone(), nu0.clone()
+    for new_lr in (0.003, 0.02):
+        lr.fill_(new_lr)
+        graph.replay()
+        rmsprop_update(ref_p, g, ref_nu, torch.tensor(new_lr, device=cuda), 0.95, 1e-8)
+        torch.cuda.synchronize()
+        assert torch.equal(p.view(torch.int32), ref_p.view(torch.int32)), new_lr
+        assert torch.equal(nu.view(torch.int32), ref_nu.view(torch.int32)), new_lr
+
+
+def test_rmsprop_step_launches_once_per_parameter_on_the_card(cuda, gen):
+    """RMSprop.step on CUDA parameters launches rmsprop_kernel once for
+    each parameter with a gradient and leaves the one without as it was;
+    nu equals the plain version's bit for bit."""
+    from tpu3d_torch.dense.train import RMSprop
+    from tpu3d_torch.kernels.rmsprop import rmsprop_update_plain
+
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=cuda))
+              for s in ((8, 16, 16, 28), (1000,), (7, 3))]
+    grads = [torch.randn(t.shape, generator=gen, device=cuda) * 0.05 for t in params[:2]]
+    refs = [(t.detach().clone(), torch.zeros_like(t)) for t in params]
+    opt = RMSprop(params, lr=torch.tensor(0.01, device=cuda))
+    for t, g in zip(params, grads):
+        t.grad = g
+    before = LAUNCHES["rmsprop_kernel"]
+    opt.step()
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsprop_kernel"] == before + 2
+    for (ref_p, ref_nu), g in zip(refs, grads):
+        rmsprop_update_plain(ref_p, g, ref_nu, torch.tensor(0.01, device=cuda), 0.95, 1e-8)
+    for t, (ref_p, ref_nu) in zip(params, refs):
+        assert torch.equal(opt.state[t]["nu"], ref_nu)
+    assert torch.equal(params[2].detach(), refs[2][0])
+
+
 def _step_on_card_and_cpu(cuda, gen, cfg, grid, lo, hi, occ=None, base=None, sdf=False):
     """One training step (the SDF step with ``sdf``) on the card and the
     same step on the CPU (plain versions) with the same injected random

@@ -1,8 +1,9 @@
 """The dense path's hot and device spans (tpu3d_torch/utils/trace.py) on the
 CPU: nothing recorded while tracing is off; the render view's tree and the
 training loop's chunk spans while the tracer is enabled; the same spans as
-``tpu3d.*`` ranges under torch.profiler; device spans a no-op without a
-card; and the training loop's printed rays/s over the whole loop."""
+``tpu3d.*`` ranges under torch.profiler, a kernel launch's as an
+operator's range; device spans a no-op without a card; and the training
+loop's printed rays/s over the whole loop."""
 import numpy as np
 import pytest
 import torch
@@ -128,6 +129,29 @@ def test_profiler_sees_the_spans_as_ranges(tracer):
     n = len(tracer.spans())
     _render()
     assert len(tracer.spans()) == n
+
+
+def test_launch_span_is_an_operator_range_under_the_profiler(tracer):
+    """A launch span (around a kernel launch of the port's own) records in
+    the tracer as a hot span does, nested under the open one; under
+    torch.profiler its ``tpu3d.*`` range is an operator's record, not a
+    user annotation, so that the profiler links the kernel launched inside
+    it to it, while a hot span's range stays an annotation. Off, both are
+    the shared no-op context."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert trace.launch_span("kernels.x") is trace.hot_span("y")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.hot_span("dense.chunk", k=1, mode="eager"):
+            with trace.launch_span("kernels.x"):
+                pass
+    events = {e.name: e for e in prof.events() if e.name.startswith(trace.PROFILER_PREFIX)}
+    assert set(events) == {"tpu3d.dense.chunk", "tpu3d.kernels.x"}
+    assert not events["tpu3d.kernels.x"].is_user_annotation
+    assert events["tpu3d.dense.chunk"].is_user_annotation
+    spans = _by_name(tracer.spans())
+    (chunk,), (launch,) = spans["dense.chunk"], spans["kernels.x"]
+    assert launch["parent"] == chunk["id"]
 
 
 def test_device_span_is_a_no_op_on_the_cpu(tracer):

@@ -34,6 +34,7 @@ from tpu3d_torch.dense.render import jitter_width, render_rays, render_rays_hier
 from tpu3d_torch.dense.sdf import ray_aabb
 from tpu3d_torch.io.ply import filter_point_cloud
 from tpu3d_torch.kernels import LAUNCHES
+from tpu3d_torch.kernels.rmsprop import rmsprop_update
 from tpu3d_torch.utils.cuda_graph import capture
 from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span
 
@@ -213,7 +214,9 @@ class RMSprop(torch.optim.Optimizer):
     + eps), eps INSIDE the root. torch.optim.RMSprop adds eps outside the
     root, which is another optimizer where nu is near 0. nu exists from the
     start and is updated in place, and the lr may be a device tensor, so
-    that a CUDA graph can capture the step."""
+    that a CUDA graph can capture the step. The update is
+    kernels/rmsprop.py::rmsprop_update: one ``rmsprop_kernel`` launch per
+    parameter on the card, the plain torch version on the CPU."""
 
     def __init__(self, params, lr=1e-2, decay: float = 0.95, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
@@ -224,14 +227,10 @@ class RMSprop(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            d = group["decay"]
             for p in group["params"]:
-                if p.grad is None:
-                    continue
-                nu, g = self.state[p]["nu"], p.grad
-                nu.mul_(d).add_((1 - d) * (g * g))
-                p.addcmul_(torch.add(nu, group["eps"]).rsqrt_().mul_(group["lr"]), g,
-                           value=-1.0)
+                if p.grad is not None:
+                    rmsprop_update(p, p.grad, self.state[p]["nu"], group["lr"],
+                                   group["decay"], group["eps"])
 
 
 def make_optimizer(cfg: DenseConfig, grid: torch.Tensor) -> torch.optim.Optimizer:

@@ -31,6 +31,7 @@ BUILD_LOG: dict = {"seconds": 0.0, "ptxas": ""}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # one packed block of arguments (PatchSampleArgs), built by the wrapper
     "tpu3d_patch_sample": [ctypes.c_char_p],
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "tpu3d_trilinear_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # one packed block of arguments (OrientDescArgs), built by the wrapper
     "tpu3d_orient_desc": [ctypes.c_char_p],
+    # p, g, nu, lr pointer (or null), lr value, decay, 1 - decay, eps, n, stream
+    "tpu3d_rmsprop": [_P, _P, _P, _P, _F, _F, _F, _F, ctypes.c_int64, _P],
 }
 
 

@@ -12,6 +12,8 @@ cost next to nothing while no one listens:
   ``--trace``) or while a torch.profiler profile records. Under the
   profiler it is also the range ``tpu3d.<name>`` on the profiler's own
   timeline, beside the card's operations. Off, it is one flag check.
+  ``launch_span(name)`` is the same around a kernel launch of the port's
+  own, with an operator's range, so that the profiler links the kernel to it.
 - ``device_span(name)``: the card's time for the work it encloses on the
   current stream, from a pair of timing events, never synchronizing. Inside
   a CUDA-graph capture under :func:`graph_marks` it always records: the
@@ -82,16 +84,20 @@ class Tracer:
                 })
 
     @contextlib.contextmanager
-    def _hot(self, name: str, **meta):
-        """A hot span recorded now (what :func:`hot_span` returns while
-        tracing is on)."""
+    def _hot(self, name: str, meta: Dict[str, Any], op_range: bool = False):
+        """A hot span recorded now (what :func:`hot_span` and, with
+        ``op_range``, :func:`launch_span` return while tracing is on)."""
         self.read_device()
         stack = _stack()
         ref = SpanRef(next(self._ids), time.time())
         parent = stack[-1] if stack else None
         stack.append(ref.id)
-        ranged = (torch.profiler.record_function(PROFILER_PREFIX + name)
-                  if _autograd_profiler._is_profiler_enabled else _NULL)
+        if not _autograd_profiler._is_profiler_enabled:
+            ranged = _NULL
+        elif op_range:
+            ranged = torch._C._profiler._RecordFunctionFast(PROFILER_PREFIX + name)
+        else:
+            ranged = torch.profiler.record_function(PROFILER_PREFIX + name)
         try:
             with ranged:
                 yield ref
@@ -230,7 +236,19 @@ def hot_span(name: str, **meta):
     while tracing is off, else one recorded in it (binds a :class:`SpanRef`)."""
     if not (_ENABLED or _autograd_profiler._is_profiler_enabled):
         return _NULL
-    return get_tracer()._hot(name, **meta)
+    return get_tracer()._hot(name, meta)
+
+
+def launch_span(name: str):
+    """A hot span around a kernel launched outside any torch operator (a
+    call into the port's CUDA library). Under the profiler its range
+    ``tpu3d.<name>`` is an operator's record, not a user annotation: the
+    profiler links a kernel to the innermost operator open at its launch,
+    never to an annotation, so the kernel is attributed to this range as a
+    torch operator's kernels are to the operator."""
+    if not (_ENABLED or _autograd_profiler._is_profiler_enabled):
+        return _NULL
+    return get_tracer()._hot(name, {}, op_range=True)
 
 
 def device_span(name: str):
