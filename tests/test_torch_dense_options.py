@@ -492,12 +492,13 @@ NOT_DENSIFY = {"--iso", "--from-matches", "--overlap", "--trace", "--xprof", "--
 
 def test_cli_takes_every_densify_flag_of_tpu3d():
     """The port's parser defines every flag of tpu3d's that densify reads,
-    with tpu3d's defaults."""
+    with tpu3d's defaults; its own are --device and --dense-batch (the
+    rays a step, tpu3d's fixed batch by default)."""
     import tpu3d.cli as JC
 
     jflags, flags = _parser_flags(JC.main), _parser_flags(TC.main)
     assert jflags - NOT_DENSIFY <= flags, sorted(jflags - NOT_DENSIFY - flags)
-    assert flags - jflags == {"--device"}
+    assert flags - jflags == {"--device", "--dense-batch"}
 
 
 # test_densify_cascade_matches_tpu3d's flags. tpu3d's held-out PSNR there is

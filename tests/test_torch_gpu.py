@@ -1120,3 +1120,145 @@ def test_dist_two_ranks_on_one_card_over_gloo(cuda, tmp_path):
     assert np.abs(r0["ba_cams"] - one.cams.cpu().numpy()).max() <= 1e-4
     for r in (r0, r1):
         np.testing.assert_array_equal(r["rows_sharded"], r0["rows_one"])
+
+
+# --------------------------------------------------------------------------
+# The Plenoxels grid, 512^3 x 28: 3,758,096,384 elements, past 2^31 (15.03
+# GB a tensor). Each test frees what it made before the next.
+
+BIG = (512, 512, 512, 28)
+
+
+def _big_points(cuda, gen, n=200_000):
+    """Points over the whole box [-1, 1]^3 and a cluster in the far corner
+    (x, y, z near 1: rows past element 2^31), the 8 box corners first."""
+    mn, mx = torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda)
+    pts = torch.rand((n, 3), generator=gen, device=cuda) * 2.2 - 1.1
+    pts[:8] = torch.stack([torch.where(torch.tensor([(k >> a) & 1 for a in range(3)],
+                                                    device=cuda) > 0, mx, mn)
+                           for k in range(8)])
+    pts[n // 2:] = 1.0 - torch.rand((n - n // 2, 3), generator=gen, device=cuda) * 0.05
+    return mn, mx, pts
+
+
+def _free():
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def test_trilinear_kernel_at_512_cubed(cuda, gen):
+    """trilinear_kernel on a 512^3 x 28 grid (its int64 offsets) against
+    the plain version on the card, bit for bit, at points over the whole
+    box and in its far corner, whose corner rows lie past element 2^31."""
+    from tpu3d_torch.kernels.trilinear import index32
+
+    grid = torch.rand(BIG, generator=gen, device=cuda)
+    assert not index32(grid.numel(), 28)
+    mn, mx, pts = _big_points(cuda, gen)
+    got, got_in = trilinear_sample(grid, mn, mx, pts)
+    ref, ref_in = trilinear_sample_plain(grid, mn, mx, pts)
+    far = ((pts + 1) / 2 * 511).floor().clamp(0, 510).long()
+    rows = (far[:, 0] * 512 + far[:, 1]) * 512 + far[:, 2]
+    assert int(rows.max()) * 28 > 2 ** 31 and bool(got_in[-1000:].all())
+    assert torch.equal(got_in, ref_in) and torch.equal(got, ref)
+    del grid, got, ref
+    _free()
+
+
+def test_trilinear_grad_kernel_at_512_cubed(cuda, gen):
+    """The scatter into a 512^3 x 28 gradient (keys, sort, column starts,
+    the kernel's every-row write) against the plain version's sums in its
+    order (corner, then sample) on the CPU, at every touched row, the last
+    1,000 rows (past element 2^31) and 100,000 rows drawn at random: bit for
+    bit, untouched rows +0.0."""
+    from tpu3d_torch.kernels.trilinear import _corner_setup
+    from tpu3d_torch.kernels.trilinear_grad import trilinear_scatter_grad
+
+    X, Y, Z, C = BIG
+    mn, mx, pts = _big_points(cuda, gen)
+    g = torch.randn((pts.shape[0], C), generator=gen, device=cuda)
+    out = trilinear_scatter_grad(g, mn, mx, (X, Y, Z), pts)
+    torch.cuda.synchronize()
+    i0, frac, inb = _corner_setup((X, Y, Z), mn.cpu(), mx.cpu(), pts.cpu())
+    gv = g.cpu() * inb[:, None]
+    base = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+    w = ((1 - frac[:, 0:1], frac[:, 0:1]), (1 - frac[:, 1:2], frac[:, 1:2]),
+         (1 - frac[:, 2:3], frac[:, 2:3]))
+    rows = torch.cat([base + (a * Y * Z + b * Z + c) for a in (0, 1) for b in (0, 1)
+                      for c in (0, 1)])
+    vals = torch.cat([w[0][a] * w[1][b] * w[2][c] * gv for a in (0, 1) for b in (0, 1)
+                      for c in (0, 1)])
+    n_rows = X * Y * Z
+    picked = torch.cat([rows, torch.arange(n_rows - 1000, n_rows),
+                        torch.randint(0, n_rows, (100_000,))])
+    sel = torch.unique(picked)
+    want = torch.zeros((len(sel), C)).index_add_(0, torch.searchsorted(sel, rows), vals)
+    got = out.view(n_rows, C)[sel.to(cuda)].cpu()
+    assert int(sel.max()) * C > 2 ** 31
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    del out
+    _free()
+
+
+def test_rmsprop_kernel_at_512_cubed(cuda, gen):
+    """rmsprop_kernel over 3,758,096,384 elements (its int64 offsets)
+    against rmsprop_update_plain on the card at the first and last 1,000
+    elements and 100,000 drawn at random: nu bit for bit, p within one ulp
+    (as at 256^3)."""
+    from tpu3d_torch.kernels.rmsprop import rmsprop_update, rmsprop_update_plain
+
+    p = torch.rand(BIG, generator=gen, device=cuda)
+    g = torch.rand(BIG, generator=gen, device=cuda).sub_(0.5).mul_(0.1)
+    nu = torch.rand(BIG, generator=gen, device=cuda).mul_(1e-3)
+    n = p.numel()
+    at = torch.cat([torch.arange(1000, device=cuda), torch.arange(n - 1000, n, device=cuda),
+                    torch.randint(0, n, (100_000,), generator=gen, device=cuda)])
+    ref_p, ref_g, ref_nu = (t.view(-1)[at].clone() for t in (p, g, nu))
+    lr = torch.tensor(0.01, device=cuda)
+    rmsprop_update(p, g, nu, lr, 0.95, 1e-8)
+    rmsprop_update_plain(ref_p, ref_g, ref_nu, lr, 0.95, 1e-8)
+    got_p, got_nu = p.view(-1)[at], nu.view(-1)[at]
+    assert torch.equal(got_nu.view(torch.int32), ref_nu.view(torch.int32))
+    ulp = torch.nextafter(ref_p.abs(), torch.full_like(ref_p, float("inf"))) - ref_p.abs()
+    assert bool(((got_p - ref_p).abs() <= ulp).all())
+    del p, g, nu
+    _free()
+
+
+def test_prior_step_memory_at_512_cubed(cuda, gen):
+    """A training step of the 512^3 x 28 grid under RMSprop with the TV and
+    sparsity priors on peaks less than 1 GB above the same step without
+    them: the priors' gradient goes to their blocks' rows, with nothing of
+    the grid's size (15.03 GB)."""
+    import dataclasses
+
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    cfg = DenseConfig(grid_resolution=512, batch_size=1024, num_samples=64, near=0.5, far=4.0,
+                      optimizer="rmsprop", scene_scale=1.0)
+    on = dataclasses.replace(cfg, tv_sigma=1e-5, tv_sh=1e-3, sparsity_sigma=1e-4)
+    lo, hi = torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda)
+    st = TT.init_state(cfg, VoxelGrid(torch.full(BIG, 0.01, device=cuda), lo, hi), 100)
+    o = torch.zeros((1024, 3), device=cuda)
+    o[:, 0] = -2.0
+    d = torch.nn.functional.normalize(torch.randn((1024, 3), generator=gen, device=cuda) * 0.3
+                                      + torch.tensor([1.0, 0.0, 0.0], device=cuda), dim=-1)
+    rgb = torch.rand((1024, 3), generator=gen, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    peaks = {}
+    for name, c in (("warm", cfg), ("off", cfg), ("on", on)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        TT.train_step(st, c, o, d, rgb, generator=g)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    assert peaks["off"] > 3 * st.grid.grid.numel() * 4
+    assert peaks["on"] - peaks["off"] < 1e9, peaks
+    del st
+    _free()

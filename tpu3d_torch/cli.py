@@ -23,7 +23,7 @@
         [--coarse-epochs N] [--occupancy] [--camera-gate --camera-gate-epoch E]
         [--aniso-grid] [--detail-epochs N [--detail-res R]] [--detail-only]
         [--tv-sigma W --tv-sh W] [--sparsity-sigma W] [--exposure]
-        [--sh-background] [--dense-optimizer adam|rmsprop]
+        [--sh-background] [--dense-optimizer adam|rmsprop] [--dense-batch B]
         [--no-checkpoint [--final-grid]] [--resume]
         [--distributed auto|HOST:PORT,N,PID --mesh auto|DxM]
     python -m tpu3d_torch.cli densify --rays-pkl F [--test-rays-pkl F] [--near N --far F]
@@ -315,7 +315,8 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
             norm_core_radius: float = 0.9, band_core_radius: float = 0.0,
             coremax_q: float = 80.0, contraction: bool = False, grid_resolution: int = 256,
             aniso_grid: bool = False, num_samples: int = 192, scene_scale: float = 0.0,
-            optimizer: str = "adam", hierarchical: bool = False, occupancy: bool = False,
+            optimizer: str = "adam", batch_size: int = 2048, hierarchical: bool = False,
+            occupancy: bool = False,
             coarse_epochs: int = 0, tv_sigma: float = 0.0, tv_sh: float = 0.0,
             sparsity_sigma: float = 0.0, exposure: bool = False, sh_background: bool = False,
             camera_gate: bool = False, camera_gate_epoch: int = 2, detail_epochs: int = 0,
@@ -355,7 +356,8 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     named names[i] in rgb_u8[i]; it must hold every registered view. focal
     is at the same scale; ``downscale`` is that scale's factor, recorded in
     dense_meta. scene_scale 0 is tpu3d's auto (1.0 under coremax and core,
-    else 1.5). ``renders``, if a list, receives the held-out renders.
+    else 1.5). ``batch_size`` is the rays a training step (``--dense-batch``;
+    tpu3d's 2048). ``renders``, if a list, receives the held-out renders.
 
     ``mesh`` ("auto" or "DxM", D x M the process group's size; auto is 1 x
     the world) trains on the (data, model) mesh of the process group
@@ -420,7 +422,8 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
         scene_scale = 1.0 if norm in ("coremax", "core") else 1.5
     cfg = DenseConfig(epochs=epochs, grid_resolution=grid_resolution, num_samples=num_samples,
                       hierarchical=hierarchical, scene_scale=scene_scale, optimizer=optimizer,
-                      near=near, far=far, per_ray_aabb=per_ray_aabb, contraction=contraction,
+                      batch_size=batch_size, near=near, far=far, per_ray_aabb=per_ray_aabb,
+                      contraction=contraction,
                       occupancy_prune=occupancy, coarse_epochs=coarse_epochs,
                       tv_sigma=tv_sigma, tv_sh=tv_sh, exposure=exposure,
                       sh_background=sh_background, sparsity_sigma=sparsity_sigma,
@@ -529,7 +532,8 @@ def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str
                       near: float = 0.0, far: float = 0.0, epochs: int = 1,
                       grid_resolution: int = 256, num_samples: int = 192,
                       hierarchical: bool = False, scene_scale: float = 0.0,
-                      optimizer: str = "adam", occupancy: bool = False, tv_sigma: float = 0.0,
+                      optimizer: str = "adam", batch_size: int = 2048,
+                      occupancy: bool = False, tv_sigma: float = 0.0,
                       tv_sh: float = 0.0, no_checkpoint: bool = False, resume: bool = False,
                       log_every: int = 170, verbose: bool = False, model: str = "plenoxel",
                       device="cuda") -> dict:
@@ -547,7 +551,7 @@ def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str
     if verbose:
         print(f"{len(dataset.origins)} rays from {rays_pkl}", flush=True)
     cfg = DenseConfig(epochs=epochs, grid_resolution=grid_resolution, num_samples=num_samples,
-                      hierarchical=hierarchical, optimizer=optimizer,
+                      hierarchical=hierarchical, optimizer=optimizer, batch_size=batch_size,
                       scene_scale=scene_scale if scene_scale > 0 else 1.5,
                       near=near if near > 0 else DenseConfig.near,
                       far=far if far > 0 else DenseConfig.far, occupancy_prune=occupancy,
@@ -1086,7 +1090,8 @@ def _cmd_densify(args) -> None:
                                 grid_resolution=args.grid_resolution,
                                 num_samples=args.num_samples, hierarchical=args.hierarchical,
                                 scene_scale=args.scene_scale, optimizer=args.dense_optimizer,
-                                occupancy=args.occupancy, tv_sigma=args.tv_sigma,
+                                batch_size=args.dense_batch, occupancy=args.occupancy,
+                                tv_sigma=args.tv_sigma,
                                 tv_sh=args.tv_sh, no_checkpoint=args.no_checkpoint,
                                 resume=args.resume, verbose=not args.quiet, model=args.model,
                                 device=args.device)
@@ -1108,7 +1113,8 @@ def _cmd_densify(args) -> None:
                   contraction=args.contraction, grid_resolution=args.grid_resolution,
                   aniso_grid=args.aniso_grid, num_samples=args.num_samples,
                   scene_scale=args.scene_scale, optimizer=args.dense_optimizer,
-                  hierarchical=args.hierarchical, occupancy=args.occupancy,
+                  batch_size=args.dense_batch, hierarchical=args.hierarchical,
+                  occupancy=args.occupancy,
                   coarse_epochs=args.coarse_epochs, tv_sigma=args.tv_sigma, tv_sh=args.tv_sh,
                   sparsity_sigma=args.sparsity_sigma, exposure=args.exposure,
                   sh_background=args.sh_background, camera_gate=args.camera_gate,
@@ -1184,6 +1190,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--scene-scale", type=float, default=0.0,
                    help="grid half-extent; 0 = 1.0 under coremax/core, else 1.5")
     p.add_argument("--dense-optimizer", choices=["adam", "rmsprop"], default="adam")
+    p.add_argument("--dense-batch", type=int, default=DenseConfig.batch_size,
+                   help="densify: rays per training step")
     p.add_argument("--hierarchical", action="store_true",
                    help="coarse->fine importance sampling in training")
     p.add_argument("--tv-sigma", type=float, default=0.0)

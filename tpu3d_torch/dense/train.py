@@ -36,7 +36,7 @@ from tpu3d_torch.io.ply import filter_point_cloud
 from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.kernels.rmsprop import rmsprop_update
 from tpu3d_torch.utils.cuda_graph import capture
-from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span
+from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span, tracing
 
 
 class RayDataset(NamedTuple):
@@ -338,35 +338,148 @@ def _exposure_adam(exposure: torch.Tensor, g: torch.Tensor, step, lr: float) -> 
     return exposure.copy_(torch.stack([gains, m, v]))
 
 
+def _crop_rows(shape, origin, size) -> torch.Tensor:
+    """The (size[0], size[1], size[2]) row indices, into the (X*Y*Z, C)
+    view of a grid of ``shape``, of the block at ``origin`` (a (3,) integer
+    tensor, on the device, so no host sync)."""
+    X, Y, Z = shape[:3]
+    o = torch.as_tensor(origin)
+    ax = [o[a] + torch.arange(size[a], device=o.device) for a in range(3)]
+    return (ax[0][:, None, None] * Y + ax[1][None, :, None]) * Z + ax[2][None, None, :]
+
+
 def _crop(grid: torch.Tensor, origin, size, channel: Optional[int] = None) -> torch.Tensor:
     """The size[0] x size[1] x size[2] block of ``grid`` at ``origin`` (a
     (3,) integer tensor, on the device, so no host sync), as one row gather
     on the (X*Y*Z, C) view; one channel of it when ``channel`` is given."""
     X, Y, Z, C = grid.shape
-    o = torch.as_tensor(origin, device=grid.device)
-    ax = [o[a] + torch.arange(size[a], device=grid.device) for a in range(3)]
-    rows = (ax[0][:, None, None] * Y + ax[1][None, :, None]) * Z + ax[2][None, None, :]
+    rows = _crop_rows(grid.shape, torch.as_tensor(origin, device=grid.device), size)
     flat = grid.reshape(X * Y * Z, C)
     return flat[rows] if channel is None else flat[rows, channel]
+
+
+def _tv_size(shape, crop: int) -> Tuple[int, int, int]:
+    """The TV prior's block: (crop + 1)^3, cut to the grid."""
+    return tuple(min(crop, d - 1) + 1 for d in shape[:3])
+
+
+def _sparsity_size(shape, crop: int) -> Tuple[int, int, int]:
+    """The sparsity prior's block: crop^3, cut to the grid."""
+    return tuple(min(crop, d) for d in shape[:3])
+
+
+def _tv_per_channel(c: torch.Tensor) -> torch.Tensor:
+    """(C,) mean squared neighbour differences of a block, summed over the
+    three axes."""
+    return (((c[1:] - c[:-1]) ** 2).mean(dim=(0, 1, 2))
+            + ((c[:, 1:] - c[:, :-1]) ** 2).mean(dim=(0, 1, 2))
+            + ((c[:, :, 1:] - c[:, :, :-1]) ** 2).mean(dim=(0, 1, 2)))
 
 
 def _tv_crop_loss(grid: torch.Tensor, origin, crop: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stochastic total variation on a (crop+1)^3 block at ``origin``:
     (density TV, summed SH TV), the mean squared neighbour differences."""
-    X, Y, Z, _ = grid.shape
-    c = _crop(grid, origin, (min(crop, X - 1) + 1, min(crop, Y - 1) + 1, min(crop, Z - 1) + 1))
-    per_ch = (((c[1:] - c[:-1]) ** 2).mean(dim=(0, 1, 2))
-              + ((c[:, 1:] - c[:, :-1]) ** 2).mean(dim=(0, 1, 2))
-              + ((c[:, :, 1:] - c[:, :, :-1]) ** 2).mean(dim=(0, 1, 2)))
+    per_ch = _tv_per_channel(_crop(grid, origin, _tv_size(grid.shape, crop)))
     return per_ch[0], per_ch[1:].sum()
 
 
 def _sparsity_crop_loss(grid: torch.Tensor, origin, crop: int) -> torch.Tensor:
     """Cauchy sparsity on the density of a crop^3 block at ``origin``:
     mean log(1 + relu(sigma)^2 / 0.25)."""
-    X, Y, Z, _ = grid.shape
-    sig = torch.relu(_crop(grid, origin, (min(crop, X), min(crop, Y), min(crop, Z)), 0))
+    sig = torch.relu(_crop(grid, origin, _sparsity_size(grid.shape, crop), 0))
     return torch.log1p(sig * sig / 0.25).mean()
+
+
+def _tv_value_grad(c: torch.Tensor, w_sigma: float, w_sh: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The TV prior on a block c (n0, n1, n2, C) without autograd: (density
+    TV, summed SH TV, the gradient of w_sigma * density TV + w_sh * SH TV
+    with respect to c), the gradient in closed form: for each axis, with d
+    the neighbour differences and M their count per channel, w_c 2 d / M
+    added to the later neighbour and taken from the earlier (rounded as
+    autograd's mean, pow and sub backwards round them)."""
+    per_ch = _tv_per_channel(c)
+    w = torch.full(c.shape[-1:], w_sh, dtype=c.dtype, device=c.device)
+    w[:1].fill_(w_sigma)
+    g = torch.zeros_like(c)
+    for dim in range(3):
+        n = c.shape[dim] - 1
+        d = c.narrow(dim, 1, n) - c.narrow(dim, 0, n)
+        gd = (w / (d.numel() // d.shape[-1])) * (2 * d)
+        g.narrow(dim, 1, n).add_(gd)
+        g.narrow(dim, 0, n).sub_(gd)
+    return per_ch[0], per_ch[1:].sum(), g
+
+
+def _sparsity_value_grad(s: torch.Tensor, w: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sparsity prior on a block of densities s without autograd: (mean
+    log(1 + relu(s)^2 / 0.25), the gradient of w times it with respect to
+    s), the gradient in closed form, rounded as autograd's backwards of
+    mean, log1p, the division, the product and relu round it."""
+    sig = torch.relu(s)
+    x = sig * sig / 0.25
+    t = torch.full((), w, dtype=s.dtype, device=s.device) / s.numel() / (x + 1) / 0.25 * sig
+    return torch.log1p(x).mean(), torch.where(sig > 0, t + t, torch.zeros_like(t))
+
+
+class CropPrior(NamedTuple):
+    """One crop prior of a step (``kind`` "tv" or "sparsity"): its block's
+    ``origin`` from the step's draws, the crop size and the weights (TV:
+    density, SH; sparsity: density)."""
+    kind: str
+    origin: torch.Tensor
+    crop: int
+    weights: Tuple[float, ...]
+
+
+def _crop_priors(cfg: DenseConfig, noise: StepNoise) -> Tuple[CropPrior, ...]:
+    """The TV and sparsity crop priors that cfg turns on, in the order the
+    loss adds them."""
+    out: Tuple[CropPrior, ...] = ()
+    if cfg.tv_sigma or cfg.tv_sh:
+        out += (CropPrior("tv", noise.tv_origin, cfg.tv_crop, (cfg.tv_sigma, cfg.tv_sh)),)
+    if cfg.sparsity_sigma:
+        out += (CropPrior("sparsity", noise.sparsity_origin, cfg.tv_crop,
+                          (cfg.sparsity_sigma,)),)
+    return out
+
+
+def prior_rows(cfg: DenseConfig, shape) -> int:
+    """Rows of the grid's (X*Y*Z, C) view that a step's crop priors add
+    their gradient to (the TV block's, then the sparsity block's)."""
+    rows = 0
+    if cfg.tv_sigma or cfg.tv_sh:
+        rows += int(np.prod(_tv_size(shape, cfg.tv_crop)))
+    if cfg.sparsity_sigma:
+        rows += int(np.prod(_sparsity_size(shape, cfg.tv_crop)))
+    return rows
+
+
+def _apply_priors(grid: torch.Tensor, priors: Tuple[CropPrior, ...],
+                  loss: torch.Tensor) -> torch.Tensor:
+    """Each prior's value added to ``loss`` (in the order and with the
+    roundings of the autograd form: TV density, TV SH, sparsity), and its
+    gradient added to ``grid.grad`` in its block's rows alone, by one
+    ``index_add_`` each (the rows are distinct, so the sums are in no
+    question of order); nothing of the grid's size is allocated. Returns
+    the loss."""
+    X, Y, Z, C = grid.shape
+    flat = grid.detach().view(X * Y * Z, C)
+    gflat = grid.grad.view(X * Y * Z, C)
+    for p in priors:
+        if p.kind == "tv":
+            rows = _crop_rows(grid.shape, p.origin, _tv_size(grid.shape, p.crop)).reshape(-1)
+            c = flat[rows].view(*_tv_size(grid.shape, p.crop), C)
+            tv_s, tv_c, g = _tv_value_grad(c, *p.weights)
+            loss = loss + p.weights[0] * tv_s + p.weights[1] * tv_c
+            gflat.index_add_(0, rows, g.view(-1, C))
+        else:
+            rows = _crop_rows(grid.shape, p.origin,
+                              _sparsity_size(grid.shape, p.crop)).reshape(-1)
+            value, g = _sparsity_value_grad(flat[rows, 0], p.weights[0])
+            loss = loss + p.weights[0] * value
+            gflat[:, 0].index_add_(0, rows, g)
+    return loss
 
 
 class StepNoise(NamedTuple):
@@ -415,26 +528,24 @@ def _latents(state: TrainState, cid: Optional[torch.Tensor]):
     return gains, bg_sh
 
 
-def _add_priors(loss: torch.Tensor, grid: torch.Tensor, cfg: DenseConfig,
-                noise: StepNoise) -> torch.Tensor:
-    """The loss plus the TV and sparsity crop priors that cfg turns on."""
-    if cfg.tv_sigma or cfg.tv_sh:
-        tv_s, tv_c = _tv_crop_loss(grid, noise.tv_origin, cfg.tv_crop)
-        loss = loss + cfg.tv_sigma * tv_s + cfg.tv_sh * tv_c
-    if cfg.sparsity_sigma:
-        loss = loss + cfg.sparsity_sigma * _sparsity_crop_loss(grid, noise.sparsity_origin,
-                                                               cfg.tv_crop)
-    return loss
-
-
 def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
-            gains: Optional[torch.Tensor], bg_sh: Optional[torch.Tensor]) -> torch.Tensor:
-    """One backward for the grid and the latents, the latents' Adam, then
-    the grid optimizer at the scheduled lr, all from the device count (no
-    host value that a graph replay would repeat). Returns the detached
-    loss."""
+            gains: Optional[torch.Tensor], bg_sh: Optional[torch.Tensor],
+            *priors: CropPrior) -> torch.Tensor:
+    """One backward for the grid and the latents; then the crop
+    ``priors``' values and gradients (:func:`_apply_priors`, the device
+    span ``dense.prior``; the counter ``dense.prior_rows`` while tracing);
+    the latents' Adam, then the grid optimizer at the scheduled lr, all from
+    the device count (no host value that a graph replay would repeat).
+    Returns the detached loss, the priors' values in it."""
     loss.backward()
+    loss = loss.detach()
     with torch.no_grad():
+        if priors:
+            grid = state.grid.grid
+            with device_span("dense.prior"):
+                loss = _apply_priors(grid, priors, loss)
+            if tracing() and not (grid.is_cuda and torch.cuda.is_current_stream_capturing()):
+                get_tracer().count("dense.prior_rows", prior_rows(cfg, grid.shape))
         if gains is not None:
             _exposure_adam(state.exposure, gains.grad, state.count, cfg.exposure_lr)
         if bg_sh is not None:
@@ -447,7 +558,7 @@ def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
     state.optimizer.zero_grad(set_to_none=True)
     state.count.add_(1)
     state.step += 1
-    return loss.detach()
+    return loss
 
 
 def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
@@ -485,7 +596,7 @@ def train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
                            contract=cfg.contraction, base_vg=base, perturb=True, u=noise.u,
                            occ=occ, occ_probes=cfg.occupancy_probes)
     loss = ((_exposure_apply(pred, gains, cid) - rgb) ** 2).mean()
-    return _update(state, cfg, _add_priors(loss, vg.grid, cfg, noise), gains, bg_sh)
+    return _update(state, cfg, loss, gains, bg_sh, *_crop_priors(cfg, noise))
 
 
 # The SDF step's band: from the ray's box entry to its exit (far is only an
@@ -525,7 +636,7 @@ def sdf_train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
     _, _, valid = ray_aabb(rays_o, rays_d, vg.min_bound, vg.max_bound)
     w = valid.to(pred.dtype)[:, None]
     loss = (w * (pred - rgb) ** 2).sum() / torch.clamp(w.sum() * 3, min=1.0)
-    return _update(state, cfg, _add_priors(loss, vg.grid, cfg, noise), gains, bg_sh)
+    return _update(state, cfg, loss, gains, bg_sh, *_crop_priors(cfg, noise))
 
 
 def _optimizer_leaves(state: TrainState, moments: Dict[str, np.ndarray], shape
@@ -621,7 +732,8 @@ class _Graph(NamedTuple):
     its (k,) losses, the kernel launches its capture recorded, the
     addresses of the tensors it reads, and the (name, start, end) event
     pairs of the device spans it records (utils/trace.py ``graph_marks``:
-    ``dense.optimizer`` around each step's optimizer)."""
+    ``dense.optimizer`` around each step's optimizer, ``dense.prior``
+    around its crop priors)."""
     graph: "torch.cuda.CUDAGraph"
     idx: torch.Tensor
     losses: torch.Tensor
@@ -641,7 +753,8 @@ class MultiStep:
     armed: at the next call (or :meth:`release`), before another replay
     rewrites its events, its graph marks are read into the tracer under its
     chunk span if the card has finished them (counter ``dense.marks_read``),
-    else it counts as ``dense.marks_missed``."""
+    else it counts as ``dense.marks_missed``; it counts its steps' prior
+    rows (``dense.prior_rows``), which an eager step counts itself."""
 
     def __init__(self, step_fn: Callable, with_occ: bool):
         self.step_fn, self.with_occ = step_fn, with_occ
@@ -707,6 +820,9 @@ class MultiStep:
                 self._armed = (g.marks, span, origin)
         for name, n in g.launches.items():
             LAUNCHES[name] += n
+        rows = prior_rows(cfg, state.grid.grid.shape)
+        if rows and tracing():
+            get_tracer().count("dense.prior_rows", k * rows)
         state.step += k
         self.replays += 1
         return g.losses.clone()     # the graph's own buffer is rewritten by its next replay
@@ -728,8 +844,14 @@ class MultiStep:
         """``steps`` (the chunk's steps over the static index block
         ``static``) captured as one graph. The capture runs the steps'
         Python but no kernel, so the host's step count and the launch
-        counts it added are taken back (each replay adds them)."""
+        counts it added are taken back (each replay adds them). The first
+        capture hands the card the memory that the eager chunks left in
+        the allocator's cache first: the graphs' pool is memory of its own,
+        and a grid that fills the card leaves no room for a second
+        gradient beside a cached one."""
         step0, before = state.step, dict(LAUNCHES)
+        if self.pool is None:
+            torch.cuda.empty_cache()
         out = []
         t0 = time.time()
         with graph_marks() as marks:
