@@ -27,7 +27,9 @@ Phases, one line each, any failure exits non-zero:
                scatter at one training step's shape and on 1,500 points in
                one cell, bit for bit against its plain version on a CPU copy
                of the inputs, two launches bit for bit, and the call's
-               pieces alone: keys, sort, offsets, kernel): max
+               pieces alone: keys, sort, offsets, kernel; shade_composite at
+               a render chunk, one grid and a cascade, against the eager
+               path it replaces, timed beside it): max
                error, bound ms, and for the kernel, its plain version and
                one library call three numbers each (``_times``): device ms
                per launch (torch.profiler), wall ms per back-to-back launch
@@ -1172,6 +1174,89 @@ def _check_rmsprop(torch, dev) -> dict:
                 replaces=None, max_abs_err=err, bound_ms=bound_ms, bound_by="bytes")
 
 
+def _shade_inputs(torch, dev, n, S, cascade):
+    """A render chunk's trilinear output as shade_composite takes it: raw
+    channels (N(0, 1) SH; densities |N(0, 1)| times 0.01 to 30 by ray), in-box
+    flags (a quarter out), sorted depths, unit directions, a per-ray
+    background, and a cascade base's channels and flags."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def values():
+        v = torch.randn((n, S, 28), generator=gen, device=dev)
+        scale = torch.tensor([0.01, 0.3, 3.0, 30.0], device=dev)[torch.arange(n, device=dev) % 4]
+        v[..., 0] = torch.randn((n, S), generator=gen, device=dev).abs() * scale[:, None]
+        return v.reshape(n * S, 28), (torch.rand((n * S,), generator=gen, device=dev) > 0.25)
+
+    vals, in_b = values()
+    z = torch.sort(torch.rand((n, S), generator=gen, device=dev) * 4 + 0.5, dim=-1).values
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device=dev), dim=-1)
+    bg = torch.rand((n, 3), generator=gen, device=dev)
+    bvals, bin_b = values() if cascade else (None, None)
+    return vals, in_b, z, d, bg, bvals, bin_b
+
+
+def _check_shade_composite(torch, dev) -> dict:
+    """shade_composite_kernel at a render chunk's shape (8,192 rays x 192
+    samples, a per-ray background), on one grid's values and on a
+    cascade's: against the eager path it replaces on the card (render
+    parity, 1e-5 a pixel; dense/render.py's _sample composition, _shade,
+    composite), against the plain version run on the card (bit for bit, or
+    the largest gap), and two launches bit for bit. Timed against the eager
+    path, which the row reports as its plain version."""
+    from tpu3d_torch.dense.render import _dirs, _shade, composite
+    from tpu3d_torch.kernels.shade_composite import shade_composite, shade_composite_plain
+
+    n, S = DENSE_CHUNK, 192
+
+    def eager(vals, in_b, z, d, bg, bvals, bin_b):
+        if bvals is not None:
+            vals = bvals * bin_b[:, None] + vals * in_b[:, None]
+            in_b = torch.ones_like(in_b)
+        sigma, rgb = _shade(vals, in_b, _dirs(d, S))
+        return composite(sigma.reshape(n, S), rgb.reshape(n, S, 3), z, True, bg)
+
+    rows = []
+    for cascade in (False, True):
+        args = _shade_inputs(torch, dev, n, S, cascade)
+        vals, in_b, z, d, bg, bvals, bin_b = args
+        got = shade_composite(vals, in_b, z, d, True, bg, bvals, bin_b)
+        again = shade_composite(vals, in_b, z, d, True, bg, bvals, bin_b)
+        ref = eager(*args)
+        plain = shade_composite_plain(vals, in_b, z, d, True, bg, bvals, bin_b)
+        torch.cuda.synchronize()
+        same, err = torch.equal(got, again), float((got - ref).abs().max())
+        plain_gap = float((got - plain).abs().max())
+        if not (same and err <= 1e-5):
+            _fail(f"shade_composite_kernel ({'cascade' if cascade else 'grid'}): two launches "
+                  f"bit for bit {same}, max |kernel - eager| {err:.3g} (1e-5 allowed)")
+        row = dict(_times(torch, lambda: shade_composite(vals, in_b, z, d, True, bg, bvals,
+                                                         bin_b), 10),
+                   **_times(torch, lambda: eager(*args), 3, "plain_"), **_NO_LIBRARY)
+        # Bound, by bytes: a sample's 28 channels, in-box flag and depth (the
+        # base's channels and flag besides), a ray's direction, background
+        # and colour, each once.
+        nbytes = n * S * (4 * 28 + 1 + 4 + (4 * 28 + 1 if cascade else 0)) + n * 3 * 4 * 3
+        row.update(bound_ms=nbytes / H100_BYTES_PER_S * 1e3, max_abs_err=err,
+                   shape=f"{n}x{S}{' cascade' if cascade else ''}")
+        ms = row["ms"] or row["wall_ms"]
+        print(f"kernel shade_composite_kernel {row['shape']}: against the eager path on the "
+              f"card max_abs_err={err:.3g}; against the plain version on the card "
+              f"{'bit for bit' if plain_gap == 0 else f'max gap {plain_gap:.3g}'}; two launches "
+              f"bit for bit {'yes' if same else 'NO'}; bound_ms={row['bound_ms']:.4f} "
+              f"({nbytes / ms / 1e6:.0f} GB/s, {row['bound_ms'] / ms:.1%} of the bound); "
+              + _fmt_times(row).replace("plain device", "eager device"), flush=True)
+        rows.append(row)
+    first = rows[0]
+    return dict(first, name="shade_composite_kernel", route="cuda",
+                source="tpu3d_torch/csrc/shade_composite.cu", replaces=None, bound_by="bytes",
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                shapes=[{"S": S, "N": n, **{k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                                               "wall_ms", "host_us", "plain_ms",
+                                                               "bound_ms")}}
+                        for r in rows])
+
+
 def _align(cams, R_gt, t_gt):
     """Camera-centre errors (relative to the spread of the scene's centres)
     and rotation errors (deg) of [rvec|t] cameras after the similarity that
@@ -1670,9 +1755,9 @@ def _run_dense(torch, dev, scene, root) -> dict:
               f"{busy:.1f} ms ({busy / (prof_wall * 1e3):.1%}); top kernels: "
               + "; ".join(f"{k[:70]} {v:.2f} ms" for k, v in top), flush=True)
     want = len(views) * -(-n_rays // DENSE_CHUNK)
-    if launches["trilinear_kernel"] != want:
-        _fail(f"trilinear_kernel launched {launches['trilinear_kernel']} times on the dense "
-              f"path, expected {want}")
+    for name in ("trilinear_kernel", "shade_composite_kernel"):
+        if launches[name] != want:
+            _fail(f"{name} launched {launches[name]} times on the dense path, expected {want}")
     if not all(np.isfinite(out["test_psnr_per_view"])):
         _fail(f"dense PSNRs not finite: {out['test_psnr_per_view']}")
     if not abs(mean - TPU3D_CPU_DENSE_PSNR) <= MAX_DENSE_PSNR_DIFF_DB:
@@ -3292,7 +3377,8 @@ def main(argv=()) -> int:
                        _check_trilinear(torch, dev, scene, dense, train_cfg, train_ds,
                                         recipe_cfg, recipe_ds),
                        _check_trilinear_grad(torch, dev, train_cfg, train_ds),
-                       _check_orient_desc(torch, dev, scene, full_cfg), _check_rmsprop(torch, dev)]
+                       _check_orient_desc(torch, dev, scene, full_cfg), _check_rmsprop(torch, dev),
+                       _check_shade_composite(torch, dev)]
         del dense
         torch.cuda.empty_cache()
 
@@ -3303,7 +3389,9 @@ def main(argv=()) -> int:
                                       camera=CameraConfig(focal_length=scene["focal"]))
             launches = _run_slice(torch, dev, scene, cfg)
             _profile_slice(torch, dev, scene, cfg)
-            _run_dense(torch, dev, scene, str(roots["dense"]))
+            # The shading row reports the dense phase (one launch a chunk).
+            launches["shade_composite_kernel"] = _run_dense(
+                torch, dev, scene, str(roots["dense"]))["shade_composite_kernel"]
             # The forward and the scatter rows report the train phase (the
             # dense, recipe and options phases' counts are on their lines).
             train = _run_train(torch, dev, scene, str(roots["train"]))

@@ -796,7 +796,10 @@ def test_multi_step_marks_read_and_bit_equal(cuda, gen, traced):
     spans = traced.spans()
     chunks = [s for s in spans if s["name"] == "dense.chunk"]
     assert [s["args"]["mode"] for s in chunks] == ["eager", "capture", "replay"]
-    assert traced.summary()["counters"] == {"dense.marks_read": 2.0}
+    # render.composite_eager: the eager chunk's 4 steps and the capture's 4
+    # (the capture runs the steps' Python; a replay runs none)
+    assert traced.summary()["counters"] == {"dense.marks_read": 2.0,
+                                            "render.composite_eager": 8.0}
     for chunk in chunks:
         opt = [s for s in spans if s["name"] == "dense.optimizer" and s["parent"] == chunk["id"]]
         assert len(opt) == 4 and all(s["dur"] > 0 and s["cat"] == "device" for s in opt)
@@ -830,7 +833,8 @@ def test_multi_step_marks_overwritten_before_done_are_missed(cuda, gen, traced):
     chunk(12)                       # the previous replay has not run yet: missed
     torch.cuda.synchronize()
     multi.release()                 # reads the last
-    assert traced.summary()["counters"] == {"dense.marks_read": 2.0, "dense.marks_missed": 1.0}
+    assert traced.summary()["counters"] == {"dense.marks_read": 2.0, "dense.marks_missed": 1.0,
+                                            "render.composite_eager": 8.0}
     modes = {s["id"]: s["args"]["mode"] for s in traced.spans() if s["name"] == "dense.chunk"}
     parents = [modes.get(s["parent"]) for s in traced.spans() if s["name"] == "dense.optimizer"]
     assert sorted(parents, key=str) == ["capture"] * 4 + ["eager"] * 4 + ["replay"] * 4
@@ -853,6 +857,181 @@ def test_render_image_on_the_card(cuda, gen):
     ref = render_image(VoxelGrid(*(x.cpu() for x in vg)), o.cpu(), d.cpu(), 0.5, 4.5, 64,
                        chunk=128, clip_aabb=True, bg_sh=bg.cpu())
     assert (got.cpu() - ref).abs().max().item() <= 1e-5
+
+
+def _shade_chunk(cuda, gen, n, S, cascade):
+    """A render chunk's inputs on the card: (n*S, 28) raw channels (N(0, 1)
+    SH, densities |N(0, 1)| times 0.01 to 30 by ray), in-box flags with the
+    first 5 rays wholly out, sorted depths, unit directions, a per-ray
+    background, and a cascade base's channels and flags."""
+    def values():
+        v = torch.randn((n, S, 28), generator=gen, device=cuda)
+        scale = torch.tensor([0.01, 0.3, 3.0, 30.0], device=cuda)[torch.arange(n, device=cuda) % 4]
+        v[..., 0] = torch.randn((n, S), generator=gen, device=cuda).abs() * scale[:, None]
+        return v.reshape(n * S, 28)
+
+    def flags():
+        f = torch.rand((n, S), generator=gen, device=cuda) > 0.25
+        f[:5] = False
+        return f.reshape(-1)
+
+    z = torch.sort(torch.rand((n, S), generator=gen, device=cuda) * 4 + 0.5, dim=-1).values
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device=cuda), dim=-1)
+    bg = torch.rand((n, 3), generator=gen, device=cuda)
+    base = (values(), flags()) if cascade else (None, None)
+    return values(), flags(), z, d, bg, base
+
+
+def _shade_eager(vals, in_b, z, d, white_bg, bg, bvals, bin_b):
+    """dense/render.py's eager path from a chunk's values: _sample's
+    composition of a cascade base, _shade, composite."""
+    from tpu3d_torch.dense.render import _dirs, _shade, composite
+
+    n, S = z.shape
+    if bvals is not None:
+        vals = bvals * bin_b[:, None] + vals * in_b[:, None]
+        in_b = torch.ones_like(in_b)
+    sigma, rgb = _shade(vals, in_b, _dirs(d, S))
+    return composite(sigma.reshape(n, S), rgb.reshape(n, S, 3), z, white_bg, bg)
+
+
+@pytest.mark.parametrize("S", [192, 128, 37])
+@pytest.mark.parametrize("cascade", [False, True], ids=["grid", "cascade"])
+def test_shade_composite_kernel_matches_eager_and_plain(cuda, gen, S, cascade):
+    """shade_composite_kernel on 1,021 rays (not a multiple of its 8 rays a
+    block; S = 37 ends in a part round), white, per-ray and black
+    backgrounds: within 1e-5 of the eager path on the card a pixel (render
+    parity; the eager path's f32 cumprod and sums round otherwise), bit for
+    bit the plain version run on the card, the wholly out-of-box rays the
+    background exactly, one launch a call."""
+    from tpu3d_torch.kernels.shade_composite import shade_composite, shade_composite_plain
+
+    vals, in_b, z, d, bg, (bvals, bin_b) = _shade_chunk(cuda, gen, 1021, S, cascade)
+    for white, b in ((True, None), (True, bg), (False, None)):
+        before = LAUNCHES["shade_composite_kernel"]
+        got = shade_composite(vals, in_b, z, d, white, b, bvals, bin_b)
+        torch.cuda.synchronize()
+        assert LAUNCHES["shade_composite_kernel"] == before + 1
+        ref = _shade_eager(vals, in_b, z, d, white, b, bvals, bin_b)
+        plain = shade_composite_plain(vals, in_b, z, d, white, b, bvals, bin_b)
+        assert (got - ref).abs().max().item() <= 1e-5
+        assert torch.equal(got, plain)
+        want = b[:5] if b is not None else torch.full((5, 3), float(white), device=cuda)
+        assert torch.equal(got[:5], want)
+
+
+def test_shade_composite_kernel_repeats_bit_for_bit(cuda, gen):
+    """Two launches on a render chunk's shape (8,192 rays x 192 samples) and
+    a cascade's give the same bits."""
+    from tpu3d_torch.kernels.shade_composite import shade_composite
+
+    for cascade in (False, True):
+        vals, in_b, z, d, bg, (bvals, bin_b) = _shade_chunk(cuda, gen, 8192, 192, cascade)
+        a = shade_composite(vals, in_b, z, d, True, bg, bvals, bin_b)
+        b = shade_composite(vals, in_b, z, d, True, bg, bvals, bin_b)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cascade", [False, True], ids=["grid", "base_grid"])
+def test_render_image_fused_against_eager_on_the_card(cuda, gen, cascade):
+    """render_image without an autograd graph to build (the kernel, one
+    launch a chunk) against the same render through the eager path (the
+    grid requiring grad under grad mode), with and without a cascade base,
+    contraction with the base: within 1e-5 a pixel; the trilinear launches
+    the same."""
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.dense.render import render_image
+
+    g = torch.randn((24, 24, 24, 28), generator=gen, device=cuda)
+    g[..., 0] = g[..., 0].abs() * 20
+    vg = VoxelGrid(g, torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda))
+    base = None
+    if cascade:
+        bgr = torch.randn((16, 16, 16, 28), generator=gen, device=cuda) * 0.5
+        bgr[..., 0] = bgr[..., 0].abs() * 5
+        base = VoxelGrid(bgr, torch.full((3,), -2.0, device=cuda),
+                         torch.full((3,), 2.0, device=cuda))
+        vg = VoxelGrid(vg.grid, torch.full((3,), -0.5, device=cuda),
+                       torch.full((3,), 0.6, device=cuda))
+    o = torch.nn.functional.normalize(torch.randn((300, 3), generator=gen, device=cuda), dim=-1)
+    d = torch.nn.functional.normalize(-o + 0.3 * torch.randn((300, 3), generator=gen,
+                                                             device=cuda), dim=-1)
+    o = 2.5 * o
+    bg_sh = torch.randn((3, 9), generator=gen, device=cuda)
+    kw = dict(chunk=128, clip_aabb=not cascade, bg_sh=bg_sh, contract=cascade, base_grid=base)
+    outs, launched = [], []
+    for fused in (True, False):
+        grid = vg if fused else VoxelGrid(vg.grid.clone().requires_grad_(), *vg[1:])
+        before = (LAUNCHES["shade_composite_kernel"], LAUNCHES["trilinear_kernel"])
+        outs.append(render_image(grid, o, d, 0.5, 4.5, 64, **kw).detach())
+        torch.cuda.synchronize()
+        launched.append((LAUNCHES["shade_composite_kernel"] - before[0],
+                         LAUNCHES["trilinear_kernel"] - before[1]))
+    assert launched[0][0] == 3 and launched[1][0] == 0
+    assert launched[0][1] == launched[1][1] == 3 * (2 if cascade else 1)
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-5
+
+
+def test_render_view_counts_every_chunk_fused(cuda, gen, traced):
+    """A traced render_view on the card: every chunk through the kernel
+    (``render.composite_fused`` = chunks = launches), none eager."""
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import render_view
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    grid = VoxelGrid(torch.rand((8, 8, 8, 28), generator=gen, device=cuda) - 0.3,
+                     torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda))
+    cfg = DenseConfig(near=0.5, far=5.0, num_samples=40, per_ray_aabb=True)
+    before = LAUNCHES["shade_composite_kernel"]
+    img = render_view(grid, np.array([0.1, -0.2, 0.05, 0.0, 0.0, 3.0]), 24, 20, 20.0, cfg,
+                      stride=2, chunk=16, bg_sh=torch.rand((3, 9), generator=gen, device=cuda))
+    assert img.shape == (12, 10, 3) and np.isfinite(img).all()
+    assert traced.summary()["counters"] == {"render.composite_fused": 8.0}
+    assert LAUNCHES["shade_composite_kernel"] == before + 8
+
+
+def test_training_never_launches_shade_composite(cuda, gen):
+    """A training chunk takes the eager path: make_multi_step's chunks of 4
+    (eager, captured and replayed, replayed) launch no
+    shade_composite_kernel, and a training step's grid gradient equals, bit
+    for bit, the one the eager functions give when called by hand as
+    render_rays called them before the kernel."""
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.dense.render import _sample, _shade, composite, ray_samples, render_rays
+
+    cfg, grid, lo, hi, (o, d, rgb), perm = _marks_problem(cuda, gen)
+    before = LAUNCHES["shade_composite_kernel"]
+    st = TT.init_state(cfg, VoxelGrid(grid.clone(), lo, hi), 16)
+    multi = TT.make_multi_step(TT.train_step, with_occ=True)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    for b in (0, 4, 8):
+        multi(st, cfg, perm[b * 256:(b + 4) * 256].view(4, 256), o, d, rgb, generator=g)
+    torch.cuda.synchronize()
+    assert multi.replays == 2
+    multi.release()
+    assert LAUNCHES["shade_composite_kernel"] == before
+
+    ix = perm[:256]
+    u = torch.rand((256, cfg.num_samples), generator=gen, device=cuda)
+    grads = []
+    for by_hand in (False, True):
+        vg = VoxelGrid(grid.clone().requires_grad_(), lo, hi)
+        if by_hand:
+            pts, dirs, z = ray_samples(o[ix], d[ix], cfg.near, cfg.far, cfg.num_samples, lo,
+                                       hi, perturb=True, u=u)
+            sigma, c = _shade(*_sample(vg, pts), dirs)
+            pred = composite(sigma.reshape(256, -1), c.reshape(256, -1, 3), z)
+        else:
+            pred = render_rays(vg, o[ix], d[ix], cfg.near, cfg.far, cfg.num_samples,
+                               perturb=True, u=u)
+        ((pred - rgb[ix]) ** 2).mean().backward()
+        grads.append(vg.grid.grad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["shade_composite_kernel"] == before
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_orient_desc_kernel_matches_plain(cuda, gen):

@@ -7,8 +7,11 @@ Pallas sampler) and its training routes (``render_rays`` under autodiff,
 ``render_rays_packed_diff``) are one function here, ``render_rays``: it
 samples through ``kernels/trilinear.py`` (the CUDA kernel on the card) and,
 when the grid requires grad, through ``kernels/trilinear_grad.py``'s
-autograd Function, whose backward is the CUDA scatter kernel.
-``render_rays_aabb`` renders the SDF grid with per-ray box bands.
+autograd Function, whose backward is the CUDA scatter kernel. A forward-only
+chunk on the card (no autograd graph to build) shades and composites in
+``kernels/shade_composite.py``'s one pass; training and the CPU take the
+eager ``_shade`` and ``composite``. ``render_rays_aabb`` renders the SDF
+grid with per-ray box bands.
 """
 from __future__ import annotations
 
@@ -17,12 +20,14 @@ from typing import Optional, Tuple
 import torch
 
 from tpu3d_torch.dense.contract import contract as contract_pts
-from tpu3d_torch.dense.grid import VoxelGrid, eval_sh
+from tpu3d_torch.dense.grid import CHANNELS, VoxelGrid, eval_sh
 from tpu3d_torch.dense.occupancy import occupancy_from_grid, sample_occupied
 from tpu3d_torch.dense.sdf import (SDFGrid, linspace01, query_sdf_sh, ray_aabb, sample_pdf,
                                    sample_stratified)
+from tpu3d_torch.kernels.shade_composite import shade_composite
 from tpu3d_torch.kernels.trilinear import trilinear_sample
 from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
+from tpu3d_torch.utils.trace import get_tracer, tracing
 
 # Euclidean reach of the background disparity tail under contraction
 # (normalized units, scene core ~1).
@@ -117,8 +122,27 @@ def _points(rays_o, rays_d, z, contract):
     pts = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
     if contract:
         pts = contract_pts(pts)
-    dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
-    return pts.reshape(-1, 3), dirs
+    return pts.reshape(-1, 3)
+
+
+def _dirs(rays_d, n_samples):
+    """Each ray's direction repeated for its samples: (N * n_samples, 3)."""
+    return rays_d[:, None, :].expand(-1, n_samples, 3).reshape(-1, 3)
+
+
+def ray_depths(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float,
+               n_samples: int, min_bound: torch.Tensor, max_bound: torch.Tensor,
+               clip_aabb: bool = False, contract: bool = False, perturb: bool = False,
+               generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
+               occ: Optional[torch.Tensor] = None, occ_probes: int = 128) -> torch.Tensor:
+    """Sample depths along rays, (N, S), each ray's on its own.
+    clip_aabb intersects each ray's [near, far] band with the box; contract
+    adds the disparity tail; perturb jitters the depths and occ guides them
+    (see :func:`_sample_z`)."""
+    t_near, t_far = _band(rays_o, rays_d, near, far, min_bound, max_bound, clip_aabb)
+    return _sample_z(rays_o, rays_d, t_near, t_far, n_samples,
+                     _CONTRACT_BG_FAR if contract else None, perturb, generator, u, occ,
+                     (min_bound, max_bound), occ_probes)
 
 
 def ray_samples(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float,
@@ -127,16 +151,11 @@ def ray_samples(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: fl
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None, occ: Optional[torch.Tensor] = None,
                 occ_probes: int = 128) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sample positions along rays: (pts (N*S, 3), dirs (N*S, 3), z (N, S)).
-    clip_aabb intersects each ray's [near, far] band with the box;
-    contract warps the positions (not the depths); perturb jitters the
-    depths and occ guides them (see :func:`_sample_z`)."""
-    t_near, t_far = _band(rays_o, rays_d, near, far, min_bound, max_bound, clip_aabb)
-    z = _sample_z(rays_o, rays_d, t_near, t_far, n_samples,
-                  _CONTRACT_BG_FAR if contract else None, perturb, generator, u, occ,
-                  (min_bound, max_bound), occ_probes)
-    pts, dirs = _points(rays_o, rays_d, z, contract)
-    return pts, dirs, z
+    """Sample positions along rays: (pts (N*S, 3), dirs (N*S, 3), z (N, S)),
+    at :func:`ray_depths`; contract warps the positions (not the depths)."""
+    z = ray_depths(rays_o, rays_d, near, far, n_samples, min_bound, max_bound, clip_aabb,
+                   contract, perturb, generator, u, occ, occ_probes)
+    return _points(rays_o, rays_d, z, contract), _dirs(rays_d, n_samples), z
 
 
 def _shade(vals, in_b, dirs):
@@ -145,6 +164,18 @@ def _shade(vals, in_b, dirs):
     sigma = torch.relu(vals[:, 0]) * in_b
     rgb = eval_sh(vals[:, 1:28].reshape(-1, 3, 9), dirs) * in_b[:, None]
     return sigma, rgb
+
+
+def _fused(vg: VoxelGrid, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether :func:`_render_at` shades and composites in
+    ``shade_composite_kernel``: a CUDA f32 grid of the 28 channels and no
+    autograd graph to build (grad mode off, or none of the grid and
+    ``tensors`` requires grad)."""
+    g = vg.grid
+    if not (g.is_cuda and g.dtype == torch.float32 and g.shape[-1] == CHANNELS):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t is not None and t.requires_grad for t in (g, *tensors)))
 
 
 def _sample(vg: VoxelGrid, pts: torch.Tensor, base_vg: Optional[VoxelGrid] = None):
@@ -163,6 +194,34 @@ def _sample(vg: VoxelGrid, pts: torch.Tensor, base_vg: Optional[VoxelGrid] = Non
     return vals, in_b
 
 
+def _render_at(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor,
+               white_bg: bool, bg: Optional[torch.Tensor], contract: bool,
+               base_vg: Optional[VoxelGrid]) -> torch.Tensor:
+    """(N, 3) colours of rays sampled at the depths ``z`` (N, S) (see
+    :func:`render_rays`). Without an autograd graph to build on the card
+    (:func:`_fused`) the grid's and the base's trilinear values go to
+    ``shade_composite_kernel``; otherwise ``_shade`` and ``composite``
+    shade and composite them. While tracing is on, the counters
+    ``render.composite_fused`` and ``render.composite_eager`` count the
+    calls of each."""
+    n, S = z.shape
+    pts = _points(rays_o, rays_d, z, contract)
+    if _fused(vg, rays_o, rays_d, bg):
+        if tracing():
+            get_tracer().count("render.composite_fused")
+        vals, in_b = trilinear_sample(vg.grid, vg.min_bound, vg.max_bound, pts)
+        bvals = bin_b = None
+        if base_vg is not None:
+            bvals, bin_b = trilinear_sample(base_vg.grid, base_vg.min_bound,
+                                            base_vg.max_bound, pts)
+        return shade_composite(vals, in_b, z.contiguous(), rays_d.contiguous(), white_bg,
+                               None if bg is None else bg.contiguous(), bvals, bin_b)
+    if tracing():
+        get_tracer().count("render.composite_eager")
+    sigma, rgb = _shade(*_sample(vg, pts, base_vg), _dirs(rays_d, S))
+    return composite(sigma.reshape(n, S), rgb.reshape(n, S, 3), z, white_bg, bg)
+
+
 def render_rays(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 near: float, far: float, n_samples: int = 192, white_bg: bool = True,
                 clip_aabb: bool = False, bg: Optional[torch.Tensor] = None,
@@ -179,15 +238,14 @@ def render_rays(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
     layer: depths and clipping follow the base's box, the base's raw
     channels are added before the activations, and the detail grid counts
     only inside its own box. The base is sampled forward-only and gets no
-    gradient."""
-    n = rays_o.shape[0]
+    gradient.
+
+    A forward-only call on the card shades and composites in
+    ``shade_composite_kernel`` (:func:`_render_at`)."""
     rb = base_vg if base_vg is not None else vg
-    pts, dirs, z = ray_samples(rays_o, rays_d, near, far, n_samples, rb.min_bound,
-                               rb.max_bound, clip_aabb, contract, perturb, generator, u,
-                               occ, occ_probes)
-    sigma, rgb = _shade(*_sample(vg, pts, base_vg), dirs)
-    return composite(sigma.reshape(n, n_samples), rgb.reshape(n, n_samples, 3), z,
-                     white_bg, bg)
+    z = ray_depths(rays_o, rays_d, near, far, n_samples, rb.min_bound, rb.max_bound, clip_aabb,
+                   contract, perturb, generator, u, occ, occ_probes)
+    return _render_at(vg, rays_o, rays_d, z, white_bg, bg, contract, base_vg)
 
 
 def render_rays_aabb(sg: SDFGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -205,8 +263,7 @@ def render_rays_aabb(sg: SDFGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
     t_near, t_far, valid = ray_aabb(rays_o, rays_d, sg.min_bound, sg.max_bound)
     t_far = torch.where(valid, t_far, t_near + 1.0)
     z = sample_stratified(t_near, t_far, n_samples, perturb, generator, u)
-    pts, dirs = _points(rays_o, rays_d, z, False)
-    sigma, rgb = query_sdf_sh(sg, pts, dirs)
+    sigma, rgb = query_sdf_sh(sg, _points(rays_o, rays_d, z, False), _dirs(rays_d, n_samples))
     out = composite(sigma.reshape(n, n_samples), rgb.reshape(n, n_samples, 3), z, white_bg, bg)
     return out, valid
 
@@ -238,16 +295,16 @@ def render_rays_hierarchical(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.
                     _CONTRACT_BG_FAR if contract else None, perturb, generator, u_coarse, occ,
                     (rb.min_bound, rb.max_bound), occ_probes)
     with torch.no_grad():
-        pts_c, _ = _points(rays_o, rays_d, z_c, contract)
+        pts_c = _points(rays_o, rays_d, z_c, contract)
         vals_c, in_c = _sample(VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), pts_c,
                                base_vg)
         sigma_c = (torch.relu(vals_c[:, 0]) * in_c).reshape(n, n_coarse)
         w = composite_weights(sigma_c, z_c)
     z_f = sample_pdf(z_c, w, n_fine, generator=generator, u=u_fine)
     z = torch.sort(torch.cat([z_c, z_f], dim=-1), dim=-1).values
-    pts, dirs = _points(rays_o, rays_d, z, contract)
-    sigma, rgb = _shade(*_sample(vg, pts, base_vg), dirs)
     S = n_coarse + n_fine
+    sigma, rgb = _shade(*_sample(vg, _points(rays_o, rays_d, z, contract), base_vg),
+                        _dirs(rays_d, S))
     return composite(sigma.reshape(n, S), rgb.reshape(n, S, 3), z, white_bg, bg)
 
 
@@ -256,18 +313,22 @@ def render_image(vg: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  clip_aabb: bool = False, occ_prune: bool = False, occ_factor: int = 4,
                  occ_threshold: float = 0.5, bg_sh: Optional[torch.Tensor] = None,
                  contract: bool = False, base_grid: Optional[VoxelGrid] = None) -> torch.Tensor:
-    """Full-image render in chunks of ``chunk`` rays (no padding: eager
-    PyTorch has no compiled shape to keep). occ_prune draws every ray's
-    depths by its occupancy, computed once from ``vg`` (factor
-    ``occ_factor``, threshold ``occ_threshold``). bg_sh: learned (3, 9)
-    background SH coefficients, composited under the residual
-    transmittance in place of white."""
+    """Full-image render (:func:`render_rays` without jitter) in chunks of
+    ``chunk`` rays (no padding: eager PyTorch has no compiled shape to
+    keep). occ_prune draws every ray's depths by its occupancy, computed
+    once from ``vg`` (factor ``occ_factor``, threshold ``occ_threshold``).
+    bg_sh: learned (3, 9) background SH coefficients, composited under the
+    residual transmittance in place of white. The depths and the background
+    are per-ray work, done once for all the rays; a chunk samples, shades
+    and composites."""
     occ = occupancy_from_grid(vg.grid, occ_factor, occ_threshold) if occ_prune else None
+    rb = base_grid if base_grid is not None else vg
+    z = ray_depths(rays_o, rays_d, near, far, n_samples, rb.min_bound, rb.max_bound, clip_aabb,
+                   contract, occ=occ)
+    bg = None if bg_sh is None else eval_sh(bg_sh.expand(rays_d.shape[0], 3, 9), rays_d)
     outs = []
     for s in range(0, rays_o.shape[0], chunk):
-        rd = rays_d[s:s + chunk]
-        bg = None if bg_sh is None else eval_sh(bg_sh.expand(rd.shape[0], 3, 9), rd)
-        outs.append(render_rays(vg, rays_o[s:s + chunk], rd, near, far, n_samples,
-                                clip_aabb=clip_aabb, bg=bg, contract=contract,
-                                base_vg=base_grid, occ=occ))
+        c = slice(s, s + chunk)
+        outs.append(_render_at(vg, rays_o[c], rays_d[c], z[c], True,
+                               None if bg is None else bg[c], contract, base_grid))
     return torch.cat(outs)

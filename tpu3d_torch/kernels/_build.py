@@ -47,6 +47,9 @@ _SIGNATURES = {
     "tpu3d_orient_desc": [ctypes.c_char_p],
     # p, g, nu, lr pointer (or null), lr value, decay, 1 - decay, eps, n, stream
     "tpu3d_rmsprop": [_P, _P, _P, _P, _F, _F, _F, _F, ctypes.c_int64, _P],
+    # vals, in_b, bvals (or null), bin_b (or null), z, rays_d, bg (or null),
+    # out, N, S, white, stream
+    "tpu3d_shade_composite": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I, _I, _P],
 }
 
 
