@@ -6,8 +6,9 @@ On the card a chunk of steps is a CUDA graph of the same ``train_step`` or
 So the chunk is held (a) against the per-step loop, bit for bit, for each
 option a step takes, (b) against tpu3d's make_multi_step with tpu3d's
 draws injected, (c) inside train_plenoxel and train_sdf, scan_chunk 16
-against 1, and (d) its device-side lr and bias corrections against the
-host's. Chunks of K = 4 with a tail of 2. The graph itself is held against
+against 1 (the same loop, each step one eager chunk), and (d) its
+device-side lr and bias corrections against the host's. Chunks of K = 4
+with a tail of 2. The graph itself is held against
 the eager steps by tests/test_torch_gpu.py and chip_smoke.py.
 """
 import jax
@@ -292,10 +293,11 @@ def test_chunked_loop_matches_per_step(run):
                 for p in phases]
 
     assert logs(p16) == logs(p1)
-    # every chunk (16 and a tail of 5) runs eagerly on the CPU
+    # every chunk (16 and a tail of 5) runs eagerly on the CPU; at scan_chunk
+    # 1 each step is one eager chunk
     assert [(p["replays"], p["eager_chunks"]) for p in p16] == [
         (0, 2 * len(p["log"]) // 21) for p in p16]
-    assert [(p["replays"], p["eager_chunks"]) for p in p1] == [(0, 0)] * len(p1)
+    assert [(p["replays"], p["eager_chunks"]) for p in p1] == [(0, p["steps"]) for p in p1]
 
 
 @pytest.mark.parametrize("steps_per_epoch", [1, 7, 100])

@@ -104,8 +104,6 @@ def test_row_only_prior_gradient_equals_autograd(shape):
     outside = p.grad.reshape(-1, 28)[~inside]
     assert torch.equal(outside.view(torch.int32),
                        before.reshape(-1, 28)[~inside].view(torch.int32))
-    assert TT.prior_rows(cfg, shape) == int(np.prod(TT._tv_size(shape, cfg.tv_crop))) + int(
-        np.prod(TT._sparsity_size(shape, cfg.tv_crop)))
 
 
 def test_init_state_trains_the_grid_in_place():
@@ -252,7 +250,8 @@ def test_chunk_16_equals_chunk_1_with_the_prior(monkeypatch):
     """train_plenoxel under RMSprop with the TV prior at the configuration's
     weights and crop (and the sparsity prior), scan_chunk 16 against 1, two
     epochs of 21 steps: the same logged losses and grid, bit for bit; while
-    tracing, each step counts its blocks' rows in ``dense.prior_rows``."""
+    tracing, every chunk is a ``dense.chunk`` span (2 a scan_chunk 16 epoch,
+    one a step at scan_chunk 1)."""
     monkeypatch.setattr(trace, "_GLOBAL", None)
     monkeypatch.setattr(trace, "_ENABLED", True)
     kw = dict(grid_resolution=8, batch_size=8, num_samples=8, near=0.5, far=4.0, epochs=2,
@@ -267,9 +266,7 @@ def test_chunk_16_equals_chunk_1_with_the_prior(monkeypatch):
     assert len(l16) == len(l1) == 42
     np.testing.assert_array_equal(l16, l1)
     assert torch.equal(g16, g1)
-    rows = TT.prior_rows(DenseConfig(**kw), (8, 8, 8))
-    assert rows == 8 ** 3 * 2
-    assert trace.get_tracer().summary()["counters"]["dense.prior_rows"] == 2 * 42 * rows
+    assert trace.get_tracer().summary()["spans"]["dense.chunk"]["count"] == 2 * 2 + 42
 
 
 def test_densify_dense_batch_reaches_the_config(tmp_path, monkeypatch):

@@ -280,6 +280,35 @@ def test_train_sdf_losses_match_tpu3d(monkeypatch, coarse):
         ["coarse", "fine"] if coarse else ["train"])
 
 
+def test_train_sdf_ignores_occupancy_and_the_camera_gate():
+    """train_sdf with occupancy pruning (a refresh due every 4 steps) and the
+    camera gate (at epoch 1, MAD 0: a plenoxel loop drops a camera) against
+    both off, 2 epochs of 21 steps: the same logged losses and grid, bit for
+    bit, no occupancy refresh and no gate recorded (tpu3d's SDF loop has
+    neither)."""
+    rng = np.random.RandomState(3)
+    o = rng.normal(size=(168, 3)).astype(np.float32)
+    o = 2.5 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = -o + rng.normal(scale=0.3, size=o.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ds = TT.RayDataset(o, d, rng.uniform(0.2, 0.8, (168, 3)).astype(np.float32),
+                       np.repeat(np.arange(7, dtype=np.int32), 24))
+    kw = dict(grid_resolution=8, batch_size=8, num_samples=8, epochs=2, scene_scale=1.0,
+              tv_sigma=0.1, exposure=True, sh_background=True, occupancy_every=4,
+              occupancy_threshold=0.5, camera_gate_epoch=1, camera_gate_mad=0.0)
+    out = {}
+    for on in (True, False):
+        g, losses = TT.train_sdf(ds, DenseConfig(occupancy_prune=on, camera_gate=on, **kw),
+                                 seed=2, verbose=False, log_every=1, device="cpu")
+        aux = TT.LAST_TRAIN_AUX
+        assert aux["occupancy_refreshes"] == [] and aux["camera_gate"] is None
+        assert aux["dropped_cameras"] == []
+        out[on] = (g.grid, losses)
+    assert len(out[True][1]) == 42
+    np.testing.assert_array_equal(out[True][1], out[False][1])
+    assert torch.equal(out[True][0], out[False][0])
+
+
 def test_train_sdf_refuses_a_device_mesh():
     """train_sdf(mesh=) trains through the brick-sharded step (item 10, once
     refused here), which refuses what tpu3d's refuses: occupancy pruning,

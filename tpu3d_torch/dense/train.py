@@ -19,6 +19,7 @@ a ``torch.Generator``; tests inject tpu3d's draws instead (``StepNoise``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -36,7 +37,7 @@ from tpu3d_torch.io.ply import filter_point_cloud
 from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.kernels.rmsprop import rmsprop_update
 from tpu3d_torch.utils.cuda_graph import capture
-from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span, tracing
+from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span
 
 
 class RayDataset(NamedTuple):
@@ -444,17 +445,6 @@ def _crop_priors(cfg: DenseConfig, noise: StepNoise) -> Tuple[CropPrior, ...]:
     return out
 
 
-def prior_rows(cfg: DenseConfig, shape) -> int:
-    """Rows of the grid's (X*Y*Z, C) view that a step's crop priors add
-    their gradient to (the TV block's, then the sparsity block's)."""
-    rows = 0
-    if cfg.tv_sigma or cfg.tv_sh:
-        rows += int(np.prod(_tv_size(shape, cfg.tv_crop)))
-    if cfg.sparsity_sigma:
-        rows += int(np.prod(_sparsity_size(shape, cfg.tv_crop)))
-    return rows
-
-
 def _apply_priors(grid: torch.Tensor, priors: Tuple[CropPrior, ...],
                   loss: torch.Tensor) -> torch.Tensor:
     """Each prior's value added to ``loss`` (in the order and with the
@@ -533,19 +523,16 @@ def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
             *priors: CropPrior) -> torch.Tensor:
     """One backward for the grid and the latents; then the crop
     ``priors``' values and gradients (:func:`_apply_priors`, the device
-    span ``dense.prior``; the counter ``dense.prior_rows`` while tracing);
-    the latents' Adam, then the grid optimizer at the scheduled lr, all from
-    the device count (no host value that a graph replay would repeat).
+    span ``dense.prior``); the latents' Adam, then the grid optimizer at
+    the scheduled lr, all from the device count (no host value that a graph
+    replay would repeat).
     Returns the detached loss, the priors' values in it."""
     loss.backward()
     loss = loss.detach()
     with torch.no_grad():
         if priors:
-            grid = state.grid.grid
             with device_span("dense.prior"):
-                loss = _apply_priors(grid, priors, loss)
-            if tracing() and not (grid.is_cuda and torch.cuda.is_current_stream_capturing()):
-                get_tracer().count("dense.prior_rows", prior_rows(cfg, grid.shape))
+                loss = _apply_priors(state.grid.grid, priors, loss)
         if gains is not None:
             _exposure_adam(state.exposure, gains.grad, state.count, cfg.exposure_lr)
         if bg_sh is not None:
@@ -753,11 +740,11 @@ class MultiStep:
     armed: at the next call (or :meth:`release`), before another replay
     rewrites its events, its graph marks are read into the tracer under its
     chunk span if the card has finished them (counter ``dense.marks_read``),
-    else it counts as ``dense.marks_missed``; it counts its steps' prior
-    rows (``dense.prior_rows``), which an eager step counts itself."""
+    else it counts as ``dense.marks_missed``. With ``eager_only`` every
+    chunk runs eagerly."""
 
-    def __init__(self, step_fn: Callable, with_occ: bool):
-        self.step_fn, self.with_occ = step_fn, with_occ
+    def __init__(self, step_fn: Callable, with_occ: bool, eager_only: bool = False):
+        self.step_fn, self.with_occ, self.eager_only = step_fn, with_occ, eager_only
         self.graphs: Dict[int, _Graph] = {}
         self.warm: set = set()
         self.pool = None
@@ -795,7 +782,8 @@ class MultiStep:
         kw = dict(occ=occ, base=base) if self.with_occ else {}
         rays = (o_all, d_all, rgb_all, cid_all)
         k = idx.shape[0]
-        eager = not idx.is_cuda or (k not in self.graphs and k not in self.warm)
+        eager = (self.eager_only or not idx.is_cuda
+                 or (k not in self.graphs and k not in self.warm))
         mode = "eager" if eager else "replay" if k in self.graphs else "capture"
         with hot_span("dense.chunk", k=k, mode=mode) as span:
             if eager:
@@ -820,9 +808,6 @@ class MultiStep:
                 self._armed = (g.marks, span, origin)
         for name, n in g.launches.items():
             LAUNCHES[name] += n
-        rows = prior_rows(cfg, state.grid.grid.shape)
-        if rows and tracing():
-            get_tracer().count("dense.prior_rows", k * rows)
         state.step += k
         self.replays += 1
         return g.losses.clone()     # the graph's own buffer is rewritten by its next replay
@@ -877,12 +862,16 @@ class MultiStep:
             torch.cuda.empty_cache()
 
 
-def make_multi_step(step_fn: Callable, with_occ: bool) -> MultiStep:
+def make_multi_step(step_fn: Callable, with_occ: bool, chunk: Optional[int] = None
+                    ) -> MultiStep:
     """tpu3d's make_multi_step (train.py:514): K training steps, one
     chunk of tpu3d's scan, against a ray dataset that stays on the device;
     the host sends only the (K, batch) block of indices. ``step_fn`` is
     :func:`train_step` (``with_occ``: it takes the occupancy grid and the
-    cascade base) or :func:`sdf_train_step`.
+    cascade base) or :func:`sdf_train_step`. ``chunk`` is the loop's scan
+    chunk: a loop of single steps (``chunk`` 1: scan_chunk 1, or a dataset
+    smaller than one batch) runs each step as an eager chunk, as tpu3d's
+    loop without a scan.
 
     On the card a chunk of K steps is one CUDA graph, replayed: the first
     chunk of each length K runs eagerly (the warm-up: the kernel library,
@@ -894,7 +883,7 @@ def make_multi_step(step_fn: Callable, with_occ: bool) -> MultiStep:
     device tensors in place, and its draws come from a generator registered
     with the graph, so a replay continues the eager stream of draws. On the
     CPU every chunk runs eagerly."""
-    return MultiStep(step_fn, with_occ)
+    return MultiStep(step_fn, with_occ, eager_only=chunk == 1)
 
 
 def _coarse_stage(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: VoxelGrid,
@@ -961,14 +950,48 @@ class _LossLog:
                       f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
 
 
-def _graph_record(multi: Optional[MultiStep]) -> dict:
-    """A phase's record of how make_multi_step ran its chunks (none with
-    scan_chunk 1): graph replays, chunks run eagerly (all of them on the
-    CPU; a length's warm-up on the card) and each capture's seconds."""
-    if multi is None:
-        return dict(replays=0, eager_chunks=0, capture_seconds=[])
+def _graph_record(multi: MultiStep) -> dict:
+    """A phase's record of how make_multi_step ran its chunks: graph
+    replays, chunks run eagerly (all of them on the CPU and in a loop of
+    single steps; a length's warm-up on the card) and each capture's
+    seconds."""
     return dict(replays=multi.replays, eager_chunks=multi.eager_chunks,
                 capture_seconds=list(multi.capture_seconds))
+
+
+def _n_cams(cfg: DenseConfig, dataset: RayDataset) -> Optional[int]:
+    """The camera count of the exposure latents, None without them."""
+    return (int(dataset.cam_ids.max()) + 1
+            if cfg.exposure and dataset.cam_ids is not None else None)
+
+
+def _upload_rays(dataset: RayDataset, n_cams: Optional[int], dev
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The ray dataset on ``dev``, once: origins, directions, colours, and
+    the camera ids when the exposure latents read them (else None)."""
+    o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                             for a in (dataset.origins, dataset.dirs, dataset.rgb))
+    cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
+               if n_cams is not None else None)
+    return o_all, d_all, rgb_all, cid_all
+
+
+def _record(state: TrainState, log: _LossLog, phases: List[dict], phase: str, res,
+            steps: int, graphs: Optional[dict] = None, **aux) -> None:
+    """A training loop's record: its phase entry (name, grid resolution,
+    steps, log, seconds and ``graphs``, how its chunks ran) appended to
+    ``phases``, and LAST_TRAIN_AUX anew (the latents, the log, the step
+    count, the phases; ``aux`` sets the camera gate's and the occupancy
+    refreshes' keys, or adds the loop's own)."""
+    phases.append(dict(phase=phase, res=list(res), steps=steps, log=log.entries,
+                       seconds=time.time() - log.t0, **(graphs or {})))
+    LAST_TRAIN_AUX.clear()
+    LAST_TRAIN_AUX.update(
+        background=None if state.background is None else state.background[0].cpu().numpy(),
+        exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
+        dropped_cameras=[], log=log.entries, steps=state.step, occupancy_refreshes=[],
+        camera_gate=None, phases=phases)
+    LAST_TRAIN_AUX.update(aux)
 
 
 def _camera_gate_probe(state: TrainState, dataset: RayDataset, cfg: DenseConfig,
@@ -1063,109 +1086,9 @@ def train_plenoxel(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed:
         return train_dense_tp(dataset, cfg, mesh, seed=seed, grid=grid, verbose=verbose,
                               log_every=log_every, checkpoint_store=checkpoint_store,
                               resume=resume, sdf_mode=False, device=dev)
-    n = len(dataset.origins)
-    steps_per_epoch = max(n // cfg.batch_size, 1)
-    if grid is None:
-        s = 2.0 if cfg.contraction else cfg.scene_scale
-        grid = create_grid(cfg.grid_resolution, (-s, -s, -s), (s, s, s), device=dev)
-    phases: List[dict] = []
-    losses: List[float] = []
-    if cfg.coarse_epochs > 0 and cfg.epochs > cfg.coarse_epochs and not resume:
-        grid, losses, cfg, coarse = _coarse_stage(dataset, cfg, seed, grid, verbose, log_every,
-                                                  dev)
-        phases.append(coarse)
-    n_cams = (int(dataset.cam_ids.max()) + 1
-              if cfg.exposure and dataset.cam_ids is not None else None)
-    state = init_state(cfg, grid, steps_per_epoch, n_cams)
-    del grid
-    start_epoch = 0
-    if resume and checkpoint_store is not None:
-        ck = load_checkpoint(checkpoint_store, cfg, steps_per_epoch, dev)
-        if ck is not None:
-            state, start_epoch, losses = ck
-            start_epoch += 1
-            if verbose:
-                print(f"[dense] resumed at epoch {start_epoch}", flush=True)
-    base = None if base_grid is None else VoxelGrid(
-        base_grid.grid.detach(), base_grid.min_bound, base_grid.max_bound)
-    o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-                             for a in (dataset.origins, dataset.dirs, dataset.rgb))
-    cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
-               if n_cams is not None else None)
-    occ = None
-    if cfg.occupancy_prune:
-        f = cfg.occupancy_factor
-        occ = torch.ones(tuple(-(-d // f) for d in state.grid.resolution), dtype=torch.bool,
-                         device=dev)
-    chunk = 1 if n < cfg.batch_size else max(int(cfg.scan_chunk), 1)
-    plan = _chunk_plan(steps_per_epoch, chunk)
-    multi = make_multi_step(train_step, with_occ=True) if chunk > 1 else None
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    refreshes = []
-    gate, gate_dropped, kept = None, [], None
-    global_step, next_occ, step0 = 0, cfg.occupancy_every, state.step
-    B = cfg.batch_size
-    log = _LossLog(losses, log_every, B, steps_per_epoch, "[dense]" if verbose else None)
-    with f32_scope():
-        for epoch in range(start_epoch, cfg.epochs):
-            if (cfg.camera_gate and gate is None and dataset.cam_ids is not None
-                    and epoch >= cfg.camera_gate_epoch):
-                keep, gate_dropped, mse, thr = apply_camera_gate(state, dataset, cfg, verbose, dev)
-                gate = dict(epoch=epoch, step=global_step, probe_mse=mse.tolist(),
-                            threshold=thr, dropped=gate_dropped)
-                if gate_dropped:
-                    kept = torch.from_numpy(np.flatnonzero(keep)).to(dev)
-                    plan = _chunk_plan(max(len(kept) // B, 1), chunk)
-            perm = torch.randperm(n, generator=gen, device=dev)
-            if kept is not None:
-                perm = kept[torch.randperm(len(kept), generator=gen, device=dev)]
-            for b, k_steps in plan:
-                if occ is not None and global_step >= next_occ:
-                    # in place: a captured chunk reads this tensor
-                    occ.copy_(occupancy_from_grid(state.grid.grid.detach(), cfg.occupancy_factor,
-                                                  cfg.occupancy_threshold))
-                    refreshes.append(dict(step=global_step, epoch=epoch,
-                                          occupied=float(occ.float().mean())))
-                    next_occ += cfg.occupancy_every
-                if multi is not None:
-                    lc = multi(state, cfg, perm[b * B:(b + k_steps) * B].view(k_steps, B), o_all,
-                               d_all, rgb_all, occ=occ, cid_all=cid_all, base=base,
-                               generator=gen)
-                else:
-                    idx = perm[b * B:(b + 1) * B]
-                    lc = train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
-                                    None if cid_all is None else cid_all[idx], generator=gen,
-                                    occ=occ, base=base)[None]
-                global_step += k_steps
-                log.chunk(lc, b, epoch, state.step)
-            if checkpoint_store is not None:
-                save_checkpoint(checkpoint_store, state, epoch, losses)
-    phases.append(dict(phase="detail" if base is not None else "fine" if phases else "train",
-                       res=list(state.grid.resolution), steps=state.step - step0,
-                       log=log.entries, seconds=time.time() - log.t0, **_graph_record(multi)))
-    if multi is not None:
-        multi.release()
-    LAST_TRAIN_AUX.clear()
-    LAST_TRAIN_AUX.update(
-        background=None if state.background is None else state.background[0].cpu().numpy(),
-        exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
-        dropped_cameras=gate_dropped, log=log.entries, steps=state.step,
-        occupancy_refreshes=refreshes, camera_gate=gate, phases=phases)
-    vg = state.grid
-    return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses
-
-
-def _permutation(n: int, generator: torch.Generator, device, epoch: int) -> torch.Tensor:
-    """An epoch's ray order. A test replaces this function (and
-    :func:`_sdf_step_noise`) to feed tpu3d's draws."""
-    return torch.randperm(n, generator=generator, device=device)
-
-
-def _sdf_step_noise(cfg: DenseConfig, grid_shape, n_rays: int, generator: torch.Generator,
-                    device, epoch: int, step: int) -> StepNoise:
-    """Step ``step`` of epoch ``epoch``'s random numbers for the SDF step."""
-    return draw_step_noise(sdf_noise_config(cfg), grid_shape, n_rays, generator, device)
+    return _train_loop(dataset, cfg, seed, grid, verbose, log_every, dev, step_fn=train_step,
+                       with_occ=True, prefix="[dense]", checkpoint_store=checkpoint_store,
+                       resume=resume, base_grid=base_grid)
 
 
 def train_sdf(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed: int = 0,
@@ -1190,57 +1113,116 @@ def train_sdf(dataset: RayDataset, cfg: Optional[DenseConfig] = None, seed: int 
 
         return train_dense_tp(dataset, cfg, mesh, seed=seed, grid=grid, verbose=verbose,
                               log_every=log_every, sdf_mode=True, device=dev)
+    cfg = dataclasses.replace(cfg, occupancy_prune=False, camera_gate=False)
+    return _train_loop(dataset, cfg, seed, grid, verbose, log_every, dev,
+                       step_fn=sdf_train_step, with_occ=False, prefix="[sdf]",
+                       noise=_sdf_step_noise)
+
+
+def _permutation(n: int, generator: torch.Generator, device, epoch: int) -> torch.Tensor:
+    """An epoch's ray order. A test replaces this function (and
+    :func:`_sdf_step_noise`) to feed tpu3d's draws."""
+    return torch.randperm(n, generator=generator, device=device)
+
+
+def _sdf_step_noise(cfg: DenseConfig, grid_shape, n_rays: int, generator: torch.Generator,
+                    device, epoch: int, step: int) -> StepNoise:
+    """Step ``step`` of epoch ``epoch``'s random numbers for the SDF step."""
+    return draw_step_noise(sdf_noise_config(cfg), grid_shape, n_rays, generator, device)
+
+
+def _train_loop(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: Optional[VoxelGrid],
+                verbose: bool, log_every: int, device, *, step_fn: Callable, with_occ: bool,
+                prefix: str, noise: Optional[Callable[..., StepNoise]] = None,
+                checkpoint_store=None, resume: bool = False,
+                base_grid: Optional[VoxelGrid] = None) -> Tuple[VoxelGrid, List[float]]:
+    """The single-card loop of :func:`train_plenoxel` and :func:`train_sdf`
+    on ``device``. Set-up: a fresh grid unless one is given, the coarse
+    phase through this loop, the training state (or the checkpoint's), the
+    rays uploaded once, the generator and the chunk plan. Each epoch: the
+    camera gate, the permutation, then each chunk's occupancy refresh, its
+    steps through :func:`make_multi_step` (``step_fn``, ``with_occ``) and
+    its loss log (printed after ``prefix``); the checkpoint after the
+    epoch. Then the phase record and LAST_TRAIN_AUX. ``noise`` (the
+    signature of :func:`_sdf_step_noise`) gives each step's random
+    numbers; without it the step draws them from the generator."""
     n = len(dataset.origins)
     steps_per_epoch = max(n // cfg.batch_size, 1)
     if grid is None:
         s = 2.0 if cfg.contraction else cfg.scene_scale
-        grid = create_grid(cfg.grid_resolution, (-s, -s, -s), (s, s, s), device=dev)
+        grid = create_grid(cfg.grid_resolution, (-s, -s, -s), (s, s, s), device=device)
     phases: List[dict] = []
     losses: List[float] = []
-    if cfg.coarse_epochs > 0 and cfg.epochs > cfg.coarse_epochs:
+    if cfg.coarse_epochs > 0 and cfg.epochs > cfg.coarse_epochs and not resume:
+        loop = functools.partial(_train_loop, step_fn=step_fn, with_occ=with_occ, prefix=prefix,
+                                 noise=noise)
         grid, losses, cfg, coarse = _coarse_stage(dataset, cfg, seed, grid, verbose, log_every,
-                                                  dev, train_fn=train_sdf)
+                                                  device, train_fn=loop)
         phases.append(coarse)
-    n_cams = (int(dataset.cam_ids.max()) + 1
-              if cfg.exposure and dataset.cam_ids is not None else None)
+    n_cams = _n_cams(cfg, dataset)
     state = init_state(cfg, grid, steps_per_epoch, n_cams)
     del grid
-    o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-                             for a in (dataset.origins, dataset.dirs, dataset.rgb))
-    cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
-               if n_cams is not None else None)
+    start_epoch = 0
+    if resume and checkpoint_store is not None:
+        ck = load_checkpoint(checkpoint_store, cfg, steps_per_epoch, device)
+        if ck is not None:
+            state, start_epoch, losses = ck
+            start_epoch += 1
+            if verbose:
+                print(f"{prefix} resumed at epoch {start_epoch}", flush=True)
+    base = None if base_grid is None else VoxelGrid(
+        base_grid.grid.detach(), base_grid.min_bound, base_grid.max_bound)
+    o_all, d_all, rgb_all, cid_all = _upload_rays(dataset, n_cams, device)
+    occ = None
+    if cfg.occupancy_prune:
+        f = cfg.occupancy_factor
+        occ = torch.ones(tuple(-(-d // f) for d in state.grid.resolution), dtype=torch.bool,
+                         device=device)
     chunk = 1 if n < cfg.batch_size else max(int(cfg.scan_chunk), 1)
-    multi = make_multi_step(sdf_train_step, with_occ=False) if chunk > 1 else None
-    gen = torch.Generator(device=dev)
+    plan = _chunk_plan(steps_per_epoch, chunk)
+    multi = make_multi_step(step_fn, with_occ, chunk=chunk)
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    refreshes = []
+    gate, gate_dropped, kept = None, [], None
+    global_step, next_occ, step0 = 0, cfg.occupancy_every, state.step
     B, shape = cfg.batch_size, state.grid.grid.shape
-    log = _LossLog(losses, log_every, B, steps_per_epoch, "[sdf]" if verbose else None)
+    log = _LossLog(losses, log_every, B, steps_per_epoch, prefix if verbose else None)
     with f32_scope():
-        for epoch in range(cfg.epochs):
-            perm = _permutation(n, gen, dev, epoch)
-            for b, k_steps in _chunk_plan(steps_per_epoch, chunk):
-                if multi is not None:
-                    lc = multi(state, cfg, perm[b * B:(b + k_steps) * B].view(k_steps, B), o_all,
-                               d_all, rgb_all, cid_all=cid_all, generator=gen,
-                               noise=lambda j, e=epoch, s=b: _sdf_step_noise(
-                                   cfg, shape, B, gen, dev, e, s + j))
-                else:
-                    idx = perm[b * B:(b + 1) * B]
-                    lc = sdf_train_step(state, cfg, o_all[idx], d_all[idx], rgb_all[idx],
-                                        None if cid_all is None else cid_all[idx],
-                                        noise=_sdf_step_noise(cfg, shape, len(idx), gen, dev,
-                                                              epoch, b))[None]
+        for epoch in range(start_epoch, cfg.epochs):
+            if (cfg.camera_gate and gate is None and dataset.cam_ids is not None
+                    and epoch >= cfg.camera_gate_epoch):
+                keep, gate_dropped, mse, thr = apply_camera_gate(state, dataset, cfg, verbose,
+                                                                 device)
+                gate = dict(epoch=epoch, step=global_step, probe_mse=mse.tolist(),
+                            threshold=thr, dropped=gate_dropped)
+                if gate_dropped:
+                    kept = torch.from_numpy(np.flatnonzero(keep)).to(device)
+                    plan = _chunk_plan(max(len(kept) // B, 1), chunk)
+            perm = _permutation(n, gen, device, epoch)
+            if kept is not None:
+                perm = kept[_permutation(len(kept), gen, device, epoch)]
+            for b, k_steps in plan:
+                if occ is not None and global_step >= next_occ:
+                    # in place: a captured chunk reads this tensor
+                    occ.copy_(occupancy_from_grid(state.grid.grid.detach(), cfg.occupancy_factor,
+                                                  cfg.occupancy_threshold))
+                    refreshes.append(dict(step=global_step, epoch=epoch,
+                                          occupied=float(occ.float().mean())))
+                    next_occ += cfg.occupancy_every
+                # (k_steps, B) rows; a dataset smaller than one batch is one short step
+                idx = perm[b * B:(b + k_steps) * B].view(k_steps, -1)
+                step_noise = None if noise is None else (
+                    lambda j: noise(cfg, shape, idx.shape[1], gen, device, epoch, b + j))
+                lc = multi(state, cfg, idx, o_all, d_all, rgb_all, occ=occ, cid_all=cid_all,
+                           base=base, generator=gen, noise=step_noise)
+                global_step += k_steps
                 log.chunk(lc, b, epoch, state.step)
-    phases.append(dict(phase="fine" if phases else "train", res=list(state.grid.resolution),
-                       steps=state.step, log=log.entries, seconds=time.time() - log.t0,
-                       **_graph_record(multi)))
-    if multi is not None:
-        multi.release()
-    LAST_TRAIN_AUX.clear()
-    LAST_TRAIN_AUX.update(
-        background=None if state.background is None else state.background[0].cpu().numpy(),
-        exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
-        dropped_cameras=[], log=log.entries, steps=state.step, occupancy_refreshes=[],
-        camera_gate=None, phases=phases)
+            if checkpoint_store is not None:
+                save_checkpoint(checkpoint_store, state, epoch, losses)
+    _record(state, log, phases, "detail" if base is not None else "fine" if phases else "train",
+            state.grid.resolution, state.step - step0, _graph_record(multi),
+            dropped_cameras=gate_dropped, occupancy_refreshes=refreshes, camera_gate=gate)
+    multi.release()
     vg = state.grid
     return VoxelGrid(vg.grid.detach(), vg.min_bound, vg.max_bound), losses

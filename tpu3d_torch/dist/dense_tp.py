@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,9 +45,10 @@ from tpu3d_torch.dense.grid import VoxelGrid, create_grid, eval_sh
 from tpu3d_torch.dense.render import (_CONTRACT_BG_FAR, _band, _sample_z, composite,
                                       composite_weights, jitter_width)
 from tpu3d_torch.dense.sdf import ray_aabb, sample_pdf
-from tpu3d_torch.dense.train import (LAST_TRAIN_AUX, StepNoise, TrainState, _exposure_adam,
-                                     _exposure_apply, _ray_background, _sparsity_crop_loss,
-                                     _tv_crop_loss, init_state)
+from tpu3d_torch.dense.train import (StepNoise, TrainState, _exposure_adam, _exposure_apply,
+                                     _LossLog, _n_cams, _ray_background, _record,
+                                     _sparsity_crop_loss, _tv_crop_loss, _upload_rays,
+                                     init_state)
 from tpu3d_torch.dist.mesh import (Mesh, all_reduce_, data_sharding, gather_rows,
                                    gather_rows_to_root, grid_sharding, pmean, psum)
 
@@ -448,8 +448,7 @@ def _train_tp(dataset, cfg: DenseConfig, mesh: Mesh, seed: int, grid: Optional[V
         global_shape = res + (grid.grid.shape[3],)
     else:
         global_shape = tuple(grid.grid.shape)
-    n_cams = (int(dataset.cam_ids.max()) + 1
-              if cfg.exposure and dataset.cam_ids is not None else None)
+    n_cams = _n_cams(cfg, dataset)
     step = make_tp_dense_step(cfg, mesh, global_shape, sdf_mode=sdf_mode,
                               with_exposure=n_cams is not None,
                               with_background=bool(cfg.sh_background))
@@ -469,21 +468,17 @@ def _train_tp(dataset, cfg: DenseConfig, mesh: Mesh, seed: int, grid: Optional[V
             del brick
             if verbose:
                 print(f"[dense-tp] resumed at epoch {start_epoch}", flush=True)
-    o_all, d_all, rgb_all = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-                             for a in (dataset.origins, dataset.dirs, dataset.rgb))
-    cid_all = (torch.from_numpy(dataset.cam_ids.astype(np.int64)).to(dev)
-               if n_cams is not None else None)
+    o_all, d_all, rgb_all, cid_all = _upload_rays(dataset, n_cams, dev)
     B = cfg.batch_size
     gen = torch.Generator()
     gen.manual_seed(seed)
-    log: List[dict] = []
     step0 = state.step
     if verbose:
         print(f"[dense-tp] mesh {mesh.shape}: grid {global_shape} bricked x{n_model}, batch "
               f"{B} over {n_data} shards, psum "
               f"{psum_bytes_per_step(cfg, n_model, n_data) / 1e6:.1f} MB/step/device",
               flush=True)
-    t0 = time.time()
+    log = _LossLog(losses, log_every, B, steps_per_epoch, "[dense-tp]" if verbose else None)
     with f32_scope():
         for epoch in range(start_epoch, cfg.epochs):
             perm = torch.randperm(n, generator=gen)
@@ -494,24 +489,10 @@ def _train_tp(dataset, cfg: DenseConfig, mesh: Mesh, seed: int, grid: Optional[V
                 idx = data_sharding(mesh, torch.from_numpy(idx)).to(dev)
                 loss = step(state, step_key(seed, epoch, b), o_all[idx], d_all[idx],
                             rgb_all[idx], None if cid_all is None else cid_all[idx])
-                if b % log_every == 0:
-                    lv = float(loss)
-                    losses.append(lv)
-                    log.append({"epoch": epoch, "step": b, "update": state.step, "loss": lv,
-                                "seconds": time.time() - t0})
-                    if verbose:
-                        rate = (b + 1) * B / (time.time() - t0)
-                        print(f"[dense-tp] epoch {epoch} step {b}/{steps_per_epoch} loss "
-                              f"{lv:.5f} ({rate:.0f} rays/s)", flush=True)
+                log.chunk(loss[None], b, epoch, state.step)
             if checkpoint_store is not None:
                 _save_tp_checkpoint(checkpoint_store, step, state, epoch, losses)
-    phases.append(dict(phase="fine" if phases else "train", res=list(global_shape[:3]),
-                       steps=state.step - step0, log=log, seconds=time.time() - t0))
-    LAST_TRAIN_AUX.clear()
-    LAST_TRAIN_AUX.update(
-        background=None if state.background is None else state.background[0].cpu().numpy(),
-        exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
-        dropped_cameras=[], log=log, steps=state.step, occupancy_refreshes=[],
-        camera_gate=None, phases=phases,
-        mesh=dict(mesh.shape), psum_bytes_per_step=psum_bytes_per_step(cfg, n_model, n_data))
+    _record(state, log, phases, "fine" if phases else "train", global_shape[:3],
+            state.step - step0, mesh=dict(mesh.shape),
+            psum_bytes_per_step=psum_bytes_per_step(cfg, n_model, n_data))
     return state, step, losses
