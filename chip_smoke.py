@@ -29,7 +29,9 @@ Phases, one line each, any failure exits non-zero:
                of the inputs, two launches bit for bit, and the call's
                pieces alone: keys, sort, offsets, kernel; shade_composite at
                a render chunk, one grid and a cascade, against the eager
-               path it replaces, timed beside it): max
+               path it replaces, timed beside it; view_rays at a render
+               cell's view, 1936 x 1296 at stride 2, against numpy
+               view_rays and the upload it replaces, timed beside it): max
                error, bound ms, and for the kernel, its plain version and
                one library call three numbers each (``_times``): device ms
                per launch (torch.profiler), wall ms per back-to-back launch
@@ -45,7 +47,10 @@ Phases, one line each, any failure exits non-zero:
                scored by densify_eval_only on the card (held-out views 4,
                12, 20 at stride 2, 192 samples): PSNR against tpu3d's on the
                CPU, trilinear_kernel launches, peak memory, per-view render
-               seconds, and one view under torch.profiler.
+               seconds (each view's rays built on the card: one
+               view_rays_kernel launch a view, none in densify_eval_only,
+               whose views take host rays), and one view under
+               torch.profiler.
   6. train   — densify (training) on the card from a fresh directory holding
                only the scene's reconstruction, at tpu3d's default width
                (256^3 x 28, 192 samples, batch 2048, Adam) with ray stride 8
@@ -1257,6 +1262,60 @@ def _check_shade_composite(torch, dev) -> dict:
                         for r in rows])
 
 
+def _check_view_rays(torch, dev) -> dict:
+    """view_rays_kernel at a render cell's view (1936 x 1296 at stride 2:
+    627,264 rays): against its plain version run on the card (bit for bit)
+    and numpy view_rays (directions within 4 ulp of 1, and whether bit for
+    bit, as they are where numpy's sgemm is an fma chain; origins bit for bit),
+    two launches bit for bit. Timed against what the card path replaces,
+    numpy view_rays and the upload of its two arrays, which the row
+    reports as its plain version."""
+    from tpu3d_torch.dense.eval import view_pose
+    from tpu3d_torch.dense.eval import view_rays as numpy_rays
+    from tpu3d_torch.dense.train import SceneNormalization
+    from tpu3d_torch.kernels.view_rays import view_rays, view_rays_plain
+
+    H, W, stride = 1296, 1936, 2
+    cam, focal = np.array([0.3, -0.7, 0.2, 0.4, -1.1, 3.2]), 0.9 * W
+    norm = SceneNormalization(np.array([0.3, -0.2, 0.9], np.float32), 2.7)
+    R, o = view_pose(cam, norm)
+    got = view_rays(R, o, H, W, focal, stride, dev)
+    again = view_rays(R, o, H, W, focal, stride, dev)
+    plain = view_rays_plain(R, o, H, W, focal, stride, dev)
+    torch.cuda.synchronize()
+    o_np, d_np = numpy_rays(cam, H, W, focal, norm, stride)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    p_equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+    err = float(np.abs(got[1].cpu().numpy() - d_np).max())
+    n_equal = np.array_equal(got[1].cpu().numpy(), d_np)
+    o_equal = np.array_equal(got[0].cpu().numpy(), o_np)
+    if not (same and p_equal and o_equal and err <= 4 * 2.0 ** -23):
+        _fail(f"view_rays_kernel: two launches bit for bit {same}, against the plain version "
+              f"{p_equal}, origins as numpy's {o_equal}, max |dir - numpy| {err:.3g} "
+              f"(4 ulp of 1 allowed)")
+
+    def replaced():
+        ro, rd = numpy_rays(cam, H, W, focal, norm, stride)
+        return torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+
+    row = dict(_times(torch, lambda: view_rays(R, o, H, W, focal, stride, dev), 20),
+               **_times(torch, replaced, 3, "plain_"), **_NO_LIBRARY)
+    n = len(range(0, H, stride)) * len(range(0, W, stride))
+    nbytes = n * 2 * 3 * 4          # each ray's origin and direction, written once
+    row.update(bound_ms=nbytes / H100_BYTES_PER_S * 1e3, max_abs_err=err,
+               shape=f"{H}x{W}/{stride} ({n} rays)")
+    ms = row["ms"] or row["wall_ms"]
+    print(f"kernel view_rays_kernel {row['shape']}: against the plain version on the card "
+          f"bit for bit {'yes' if p_equal else 'NO'}; against numpy view_rays max_abs_err="
+          f"{err:.3g} (bit for bit {'yes' if n_equal else 'no'}), origins bit for bit "
+          f"{'yes' if o_equal else 'NO'}; two launches bit for "
+          f"bit {'yes' if same else 'NO'}; bound_ms={row['bound_ms']:.4f} "
+          f"({nbytes / ms / 1e6:.0f} GB/s, {row['bound_ms'] / ms:.1%} of the bound); "
+          + _fmt_times(row).replace("plain device", "numpy build + upload device"), flush=True)
+    return dict(row, name="view_rays_kernel", route="cuda", source="tpu3d_torch/csrc/view_rays.cu",
+                replaces=None, bound_by="bytes")
+
+
 def _align(cams, R_gt, t_gt):
     """Camera-centre errors (relative to the spread of the scene's centres)
     and rotation errors (deg) of [rvec|t] cameras after the similarity that
@@ -1735,6 +1794,10 @@ def _run_dense(torch, dev, scene, root) -> dict:
         render_view(grid, cams[views[0]], HEIGHT, WIDTH, scene["focal"], cfg, norm,
                     stride=2, chunk=DENSE_CHUNK, bg_sh=bg_sh)
         prof_wall = time.time() - t1
+    # densify_eval_only's views take host rays (its core split reads
+    # them); each view rendered here builds its rays on the card.
+    eval_rays, launches["view_rays_kernel"] = launches["view_rays_kernel"], \
+        LAUNCHES["view_rays_kernel"]
     per_kernel = _device_ms(prof)
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
@@ -1758,6 +1821,9 @@ def _run_dense(torch, dev, scene, root) -> dict:
     for name in ("trilinear_kernel", "shade_composite_kernel"):
         if launches[name] != want:
             _fail(f"{name} launched {launches[name]} times on the dense path, expected {want}")
+    if eval_rays != 0 or launches["view_rays_kernel"] != len(views) + 1:
+        _fail(f"view_rays_kernel launched {eval_rays} times by densify_eval_only (expected 0) "
+              f"and {launches['view_rays_kernel']} by {len(views) + 1} views (one each)")
     if not all(np.isfinite(out["test_psnr_per_view"])):
         _fail(f"dense PSNRs not finite: {out['test_psnr_per_view']}")
     if not abs(mean - TPU3D_CPU_DENSE_PSNR) <= MAX_DENSE_PSNR_DIFF_DB:
@@ -3378,7 +3444,7 @@ def main(argv=()) -> int:
                                         recipe_cfg, recipe_ds),
                        _check_trilinear_grad(torch, dev, train_cfg, train_ds),
                        _check_orient_desc(torch, dev, scene, full_cfg), _check_rmsprop(torch, dev),
-                       _check_shade_composite(torch, dev)]
+                       _check_shade_composite(torch, dev), _check_view_rays(torch, dev)]
         del dense
         torch.cuda.empty_cache()
 
@@ -3389,9 +3455,11 @@ def main(argv=()) -> int:
                                       camera=CameraConfig(focal_length=scene["focal"]))
             launches = _run_slice(torch, dev, scene, cfg)
             _profile_slice(torch, dev, scene, cfg)
-            # The shading row reports the dense phase (one launch a chunk).
-            launches["shade_composite_kernel"] = _run_dense(
-                torch, dev, scene, str(roots["dense"]))["shade_composite_kernel"]
+            # The shading and ray rows report the dense phase (one launch a
+            # chunk; one a view rendered without precomputed rays).
+            dense_launches = _run_dense(torch, dev, scene, str(roots["dense"]))
+            for name in ("shade_composite_kernel", "view_rays_kernel"):
+                launches[name] = dense_launches[name]
             # The forward and the scatter rows report the train phase (the
             # dense, recipe and options phases' counts are on their lines).
             train = _run_train(torch, dev, scene, str(roots["train"]))

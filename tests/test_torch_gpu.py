@@ -975,7 +975,8 @@ def test_render_image_fused_against_eager_on_the_card(cuda, gen, cascade):
 
 def test_render_view_counts_every_chunk_fused(cuda, gen, traced):
     """A traced render_view on the card: every chunk through the kernel
-    (``render.composite_fused`` = chunks = launches), none eager."""
+    (``render.composite_fused`` = chunks = launches), none eager; the rays
+    built on the card (``render.rays_device``)."""
     from tpu3d_torch.config import DenseConfig
     from tpu3d_torch.dense.eval import render_view
     from tpu3d_torch.dense.grid import VoxelGrid
@@ -987,8 +988,72 @@ def test_render_view_counts_every_chunk_fused(cuda, gen, traced):
     img = render_view(grid, np.array([0.1, -0.2, 0.05, 0.0, 0.0, 3.0]), 24, 20, 20.0, cfg,
                       stride=2, chunk=16, bg_sh=torch.rand((3, 9), generator=gen, device=cuda))
     assert img.shape == (12, 10, 3) and np.isfinite(img).all()
-    assert traced.summary()["counters"] == {"render.composite_fused": 8.0}
+    assert traced.summary()["counters"] == {"render.composite_fused": 8.0,
+                                            "render.rays_device": 1.0}
     assert LAUNCHES["shade_composite_kernel"] == before + 8
+
+
+@pytest.mark.parametrize("H, W, stride", [(37, 29, 1), (30, 45, 3), (1296, 1936, 2)])
+def test_view_rays_kernel_equals_plain(cuda, H, W, stride):
+    """view_rays_kernel against its plain version run on the card, bit for
+    bit (1,073 and 150 rays, not a multiple of its 256 a block, and the
+    render cells' 627,264 of a 1936 x 1296 view at stride 2), against numpy
+    view_rays within 4 ulp of 1 (bit for bit where numpy's sgemm is the
+    kernel's fma chain; origins bit for bit), one launch a call."""
+    from tpu3d_torch.dense.eval import view_pose, view_rays as numpy_rays
+    from tpu3d_torch.dense.train import SceneNormalization
+    from tpu3d_torch.kernels.view_rays import view_rays, view_rays_plain
+
+    cam = np.array([0.3, -0.7, 0.2, 0.4, -1.1, 3.2])
+    norm = SceneNormalization(np.array([0.3, -0.2, 0.9], np.float32), 2.7)
+    focal = 0.9 * W
+    R, o = view_pose(cam, norm)
+    before = LAUNCHES["view_rays_kernel"]
+    got = view_rays(R, o, H, W, focal, stride, cuda)
+    torch.cuda.synchronize()
+    assert LAUNCHES["view_rays_kernel"] == before + 1
+    plain = view_rays_plain(R, o, H, W, focal, stride, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    o_np, d_np = numpy_rays(cam, H, W, focal, norm, stride)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), o_np)
+    assert np.abs(got[1].cpu().numpy() - d_np).max() <= 4 * 2.0 ** -23
+
+
+def test_render_view_builds_its_rays_on_the_card(cuda, gen, traced):
+    """render_view on a CUDA grid without rays (built on the card) against
+    the same view given numpy view_rays' rays: within 1e-6 a pixel; traced,
+    the first counts ``render.rays_device`` 1 and opens no
+    ``render.upload``, the second counts no device build. The grid's two
+    outer layers hold no density: a box-clipped ray's last sample lies on
+    the box's face, where its in-box flag turns on the ray's last bits (the
+    limit of render parity that the other render tests avoid alike)."""
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense.eval import render_view, view_rays
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.dense.train import SceneNormalization
+
+    g = torch.rand((16, 16, 16, 28), generator=gen, device=cuda) - 0.3
+    shell = torch.ones((16, 16, 16), dtype=torch.bool, device=cuda)
+    shell[2:-2, 2:-2, 2:-2] = False
+    g[..., 0][shell] = -1.0
+    grid = VoxelGrid(g, torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda))
+    cfg = DenseConfig(near=0.5, far=5.0, num_samples=64, per_ray_aabb=True)
+    cam = np.array([0.1, -0.2, 0.05, 0.2, -0.1, 3.0])
+    norm = SceneNormalization(np.array([0.05, 0.1, -0.1], np.float32), 1.3)
+    bg = torch.rand((3, 9), generator=gen, device=cuda)
+    before = LAUNCHES["view_rays_kernel"]
+    got = render_view(grid, cam, 61, 83, 70.0, cfg, norm, stride=2, chunk=256, bg_sh=bg)
+    assert LAUNCHES["view_rays_kernel"] == before + 1
+    counters = dict(traced.summary()["counters"])
+    assert counters.get("render.rays_device") == 1.0 and "render.rays_host" not in counters
+    assert "render.upload" not in {s["name"] for s in traced.spans()}
+    rays = view_rays(cam, 61, 83, 70.0, norm, 2)
+    ref = render_view(grid, cam, 61, 83, 70.0, cfg, norm, stride=2, chunk=256, bg_sh=bg,
+                      rays=rays)
+    assert LAUNCHES["view_rays_kernel"] == before + 1
+    assert traced.summary()["counters"]["render.rays_device"] == 1.0
+    assert got.shape == ref.shape == (31, 42, 3)
+    assert np.abs(got - ref).max() <= 1e-6
 
 
 def test_training_never_launches_shade_composite(cuda, gen):

@@ -1,9 +1,11 @@
-"""The port's two kernels (tpu3d_torch/kernels) against tpu3d.
+"""The port's kernels (tpu3d_torch/kernels) against tpu3d and numpy.
 
 On the CPU each wrapper runs its plain PyTorch version; those are compared
 here with tpu3d's gather path, its Pallas kernels in interpret mode and its
-matcher. The CUDA kernels themselves are compared with the plain versions by
-tests/test_torch_gpu.py and by chip_smoke.py."""
+matcher, and the view's ray build with numpy ``view_rays`` (itself held to
+tpu3d's in tests/test_torch_dense.py). The CUDA kernels themselves are
+compared with the plain versions by tests/test_torch_gpu.py and by
+chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,11 +17,14 @@ from tpu3d.kernels.distance import descriptor_top2 as jax_top2
 from tpu3d.kernels.distance import mutual_nn_pallas as jax_mutual_nn
 from tpu3d.kernels.patch_sample import sample_gradient_patches as jax_patches
 from tpu3d.matching.mnn import match_descriptors as jax_match
+from tpu3d_torch.dense import eval as TE
+from tpu3d_torch.dense.train import SceneNormalization
 from tpu3d_torch.features.detector import _OFFS27, _neighbors27, offsets27
 from tpu3d_torch.features.frontend import frame_tables
 from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.kernels.distance import descriptor_top2, mutual_top2
 from tpu3d_torch.kernels.patch_sample import sample_gradient_patches
+from tpu3d_torch.kernels.view_rays import _fma, view_rays, view_rays_plain
 from tpu3d_torch.matching.mnn import match_descriptors
 
 
@@ -254,3 +259,71 @@ def test_match_descriptors_matches_mnn(rng):
                                    rtol=0, atol=1e-6)
     single = match_descriptors(t(d0[0]), t(d1[0]), t(v0[0]), t(v1[0]))
     np.testing.assert_array_equal(single.valid.numpy(), got.valid[0].numpy())
+
+
+# One ulp of 1: a unit direction's components lie in [-1, 1].
+ULP_1 = 2.0 ** -23
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("H, W", [(31, 44), (30, 45)])
+@pytest.mark.parametrize("normalized", [False, True], ids=["raw", "normalized"])
+@pytest.mark.parametrize("rvec", [(0.3, -0.7, 0.2), (4e-9, -2e-9, 1e-9)], ids=["pose", "tiny"])
+def test_view_rays_plain_matches_numpy(stride, H, W, normalized, rvec):
+    """view_rays_plain from view_pose's rotation and centre against numpy
+    view_rays of the same camera: the same pixel count and order, origins
+    bit for bit, directions within 4 ulp of 1 (numpy's product with R is a
+    BLAS sgemm; the plain version rounds it as OpenBLAS's fma chain does,
+    which makes them bit for bit on such a host, but another BLAS may round
+    otherwise), at odd and even sizes, strides 1-3, with and without a scene
+    normalization, and with a rotation under so3_exp_np's 1e-8 branch."""
+    cam = np.array([*rvec, 0.4, -1.1, 3.2])
+    norm = SceneNormalization(np.array([0.3, -0.2, 0.9], np.float32), 2.7) if normalized else None
+    o_np, d_np = TE.view_rays(cam, H, W, 37.5, norm, stride)
+    R, o = TE.view_pose(cam, norm)
+    o_t, d_t = view_rays_plain(R, o, H, W, 37.5, stride)
+    assert o_t.dtype == d_t.dtype == torch.float32
+    assert o_t.shape == d_t.shape == (len(range(0, H, stride)) * len(range(0, W, stride)), 3)
+    np.testing.assert_array_equal(o_t.numpy(), o_np)
+    assert np.abs(d_t.numpy() - d_np).max() <= 4 * ULP_1
+    np.testing.assert_allclose(np.linalg.norm(d_t.numpy(), axis=-1), 1.0, rtol=0, atol=4 * ULP_1)
+
+
+def test_view_rays_on_the_cpu_runs_the_plain_version():
+    """The wrapper on the CPU: the plain version's tensors, and no launch of
+    view_rays_kernel counted."""
+    R, o = TE.view_pose(np.array([0.1, 0.2, -0.3, 1.0, 0.5, 2.0]))
+    before = LAUNCHES["view_rays_kernel"]
+    got = view_rays(R, o, 30, 45, 40.0, 2, "cpu")
+    want = view_rays_plain(R, o, 30, 45, 40.0, 2)
+    assert LAUNCHES["view_rays_kernel"] == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].device.type == "cpu"
+
+
+def test_plain_fma_rounds_once():
+    """The plain version's fused multiply-add: x y + z rounded once to f32,
+    against exact rational arithmetic, on random operands across 80 binary
+    orders of z, and where rounding the f64 sum to f32 would round twice
+    ((1 + 2^-12)^2 is a tie in f32; +-2^-80 breaks it either way)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=4000).astype(np.float32)
+    y = rng.normal(size=4000).astype(np.float32)
+    z = (rng.normal(size=4000) * np.exp2(rng.uniform(-40, 40, 4000))).astype(np.float32)
+    tie = np.float32(1 + 2.0 ** -12)
+    x = np.concatenate([x, [tie, tie]]).astype(np.float32)
+    y = np.concatenate([y, [tie, tie]]).astype(np.float32)
+    z = np.concatenate([z, [2.0 ** -80, -(2.0 ** -80)]]).astype(np.float32)
+    got = _fma(t(x), t(y), t(z)).numpy()
+    assert got[-2] == np.float32(1 + 2.0 ** -11 + 2.0 ** -23)
+    assert got[-1] == np.float32(1 + 2.0 ** -11)
+    for xi, yi, zi, gi in zip(x, y, z, got):
+        exact = Fraction(float(xi)) * Fraction(float(yi)) + Fraction(float(zi))
+        near = np.float32(float(exact))
+        cands = (np.nextafter(near, np.float32(-np.inf)), near,
+                 np.nextafter(near, np.float32(np.inf)))
+        best = min(cands, key=lambda c: (abs(Fraction(float(c)) - exact),
+                                         int(np.float32(c).view(np.int32)) & 1))
+        assert gi == best

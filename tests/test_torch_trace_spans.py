@@ -1,6 +1,7 @@
 """The dense path's hot and device spans (tpu3d_torch/utils/trace.py) on the
 CPU: nothing recorded while tracing is off; the render view's tree and the
-training loop's chunk spans while the tracer is enabled; the same spans as
+training loop's chunk spans while the tracer is enabled; which ray build a
+view took, by its counter; the same spans as
 ``tpu3d.*`` ranges under torch.profiler, a kernel launch's as an
 operator's range; device spans a no-op without a card; and the training
 loop's printed rays/s over the whole loop."""
@@ -100,6 +101,41 @@ def test_enabled_tracer_records_the_view_tree_and_the_chunks(tracer):
     m = len(tracer.spans())
     _render()
     assert len(tracer.spans()) == m
+
+
+def test_cpu_render_view_counts_the_host_ray_build(tracer):
+    """A traced render_view on a CPU grid builds its rays in numpy:
+    ``render.rays_host`` 1, ``render.rays_device`` never, and the view keeps
+    its four phases, the upload among them."""
+    trace.enable(True)
+    try:
+        _render()
+    finally:
+        trace.enable(False)
+    counters = tracer.summary()["counters"]
+    assert counters["render.rays_host"] == 1 and "render.rays_device" not in counters
+    spans = tracer.spans()
+    (view,) = [s for s in spans if s["name"] == "render.view"]
+    kids = sorted((s for s in spans if s["parent"] == view["id"]), key=lambda s: s["ts"])
+    assert [s["name"] for s in kids] == VIEW_PHASES
+
+
+def test_device_ray_build_counts_and_spans(tracer):
+    """device_view_rays (on the CPU, the kernel's plain version): one
+    ``render.ray_build`` span around the pose and the build, and
+    ``render.rays_device`` 1; the rays those of numpy view_rays (origins
+    bit for bit, directions within 4 ulp of 1)."""
+    cam = np.array([0.1, -0.2, 0.05, 0.0, 0.0, 3.0])
+    trace.enable(True)
+    try:
+        o, d = TE.device_view_rays(cam, 12, 10, 10.0, None, 2, "cpu")
+    finally:
+        trace.enable(False)
+    assert tracer.summary()["counters"] == {"render.rays_device": 1.0}
+    assert [s["name"] for s in tracer.spans()] == ["render.ray_build"]
+    o_np, d_np = TE.view_rays(cam, 12, 10, 10.0, None, 2)
+    np.testing.assert_array_equal(o.numpy(), o_np)
+    assert np.abs(d.numpy() - d_np).max() <= 4 * 2.0 ** -23
 
 
 def test_profiler_sees_the_spans_as_ranges(tracer):

@@ -2,8 +2,11 @@
 out every k-th camera by image name, render those views in full, and report
 per-view and mean PSNR against the photographs.
 
-Rays are built on the host in numpy, rendered on ``device`` (the card
-unless the caller asks for the CPU) and brought back as numpy images.
+A view's rays are built where its grid lives: on a CUDA grid by
+``view_rays_kernel`` from the pose (nothing uploaded), on a CPU grid, or
+where the caller needs them on the host (evaluate_views' core split), by
+numpy ``view_rays``. The render runs on the grid's device and its image
+comes back as a numpy array.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from tpu3d_torch.core import lie
 from tpu3d_torch.dense.grid import VoxelGrid
 from tpu3d_torch.dense.render import render_image
 from tpu3d_torch.dense.train import RayDataset, SceneNormalization, psnr, rays_from_cameras
-from tpu3d_torch.utils.trace import hot_span
+from tpu3d_torch.kernels import view_rays as kernel_rays
+from tpu3d_torch.utils.trace import get_tracer, hot_span, tracing
 
 
 def split_views(n_views: int, holdout_every: int = 8) -> Tuple[np.ndarray, np.ndarray]:
@@ -51,24 +55,52 @@ def split_views_by_name(names, holdout_every: int = 8) -> Tuple[np.ndarray, np.n
     return np.setdiff1d(idx, test), test
 
 
+def view_pose(cam: np.ndarray,
+              norm: Optional[SceneNormalization] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """A camera's rotation R (3, 3) and centre -R^T t in the normalized
+    frame (3,), float32 both: what every ray of its view shares."""
+    R = lie.so3_exp_np(cam[:3])
+    o = -R.T @ cam[3:6]
+    if norm is not None:
+        o = norm.apply(o)
+    return R, o.astype(np.float32)
+
+
 def view_rays(cam: np.ndarray, H: int, W: int, focal: float,
               norm: Optional[SceneNormalization] = None,
               stride: int = 1) -> Tuple[np.ndarray, np.ndarray]:
-    """Ray grid of one camera: (origins (P, 3), dirs (P, 3)) in the
-    normalized frame, row-major pixel order. The hot span
-    ``render.ray_build``."""
+    """Ray grid of one camera in numpy: (origins (P, 3), dirs (P, 3)) in
+    the normalized frame, row-major pixel order. The hot span
+    ``render.ray_build``; counts ``render.rays_host`` while tracing."""
     with hot_span("render.ray_build"):
         ys, xs = np.meshgrid(np.arange(0, H, stride), np.arange(0, W, stride), indexing="ij")
         u = xs.reshape(-1).astype(np.float32) - W / 2.0
         v = -(ys.reshape(-1).astype(np.float32) - H / 2.0)
         d_cam = np.stack([u / focal, v / focal, np.ones_like(u)], axis=-1)
-        R = lie.so3_exp_np(cam[:3])
-        o = -R.T @ cam[3:6]
+        R, o = view_pose(cam, norm)
         d = d_cam @ R
         d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-        if norm is not None:
-            o = norm.apply(o)
-        return np.broadcast_to(o.astype(np.float32), d.shape).copy(), d
+        out = np.broadcast_to(o, d.shape).copy(), d
+    if tracing():
+        get_tracer().count("render.rays_host")
+    return out
+
+
+def device_view_rays(cam: np.ndarray, H: int, W: int, focal: float,
+                     norm: Optional[SceneNormalization] = None, stride: int = 1,
+                     device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`view_rays` built on ``device``: the pose on the host, the
+    rays by ``view_rays_kernel`` on a CUDA device (its plain version on the
+    CPU), as tensors there: numpy's rays, bit for bit where numpy's sgemm
+    is an fma chain (OpenBLAS on x86-64), else within a few ulp. The hot
+    span ``render.ray_build``; counts ``render.rays_device`` while
+    tracing."""
+    with hot_span("render.ray_build"):
+        R, o = view_pose(cam, norm)
+        out = kernel_rays.view_rays(R, o, H, W, focal, stride, device)
+    if tracing():
+        get_tracer().count("render.rays_device")
+    return out
 
 
 def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
@@ -79,17 +111,23 @@ def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
                 base_grid: Optional[VoxelGrid] = None) -> np.ndarray:
     """One full camera view on the grid's device -> (H', W', 3) float
     numpy. rays: optional precomputed (origins, dirs) from view_rays.
-    The hot span ``render.view`` (``rays``, ``chunks``), around the ray
-    build, ``render.upload`` (the rays to the device), ``render.enqueue``
-    (render_image's chunks) and ``render.image_copy`` (the image to the
-    host, where the host waits for the card)."""
+    Without them a CUDA grid's view builds its rays on the card
+    (:func:`device_view_rays`), a CPU grid's in numpy. The hot span
+    ``render.view`` (``rays``, ``chunks``), around the ray build
+    (``render.ray_build``), ``render.upload`` (host rays to the device; not
+    on the card's build), ``render.enqueue`` (render_image's chunks) and
+    ``render.image_copy`` (the image to the host, where the host waits for
+    the card)."""
     h = len(range(0, H, stride))
     w = len(range(0, W, stride))
     with hot_span("render.view", rays=h * w, chunks=-(-h * w // chunk)):
-        ro, rd = rays if rays is not None else view_rays(cam, H, W, focal, norm, stride)
         dev = grid.grid.device
-        with hot_span("render.upload"):
-            ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+        if rays is None and dev.type == "cuda":
+            ro, rd = device_view_rays(cam, H, W, focal, norm, stride, dev)
+        else:
+            ro, rd = rays if rays is not None else view_rays(cam, H, W, focal, norm, stride)
+            with hot_span("render.upload"):
+                ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
         with hot_span("render.enqueue"):
             img = render_image(grid, ro, rd, cfg.near, cfg.far, cfg.num_samples, chunk=chunk,
                                clip_aabb=cfg.per_ray_aabb, bg_sh=bg_sh,

@@ -50,6 +50,8 @@ _SIGNATURES = {
     # vals, in_b, bvals (or null), bin_b (or null), z, rays_d, bg (or null),
     # out, N, S, white, stream
     "tpu3d_shade_composite": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I, _I, _P],
+    # one packed block of arguments (ViewRaysArgs), built by the wrapper
+    "tpu3d_view_rays": [ctypes.c_char_p],
 }
 
 
