@@ -9,6 +9,7 @@
     python3 chip_smoke.py --sdf       # phases 1-2 and 11 only
     python3 chip_smoke.py --learned   # phases 1-2 and 12 only
     python3 chip_smoke.py --dist      # phases 1-2 and 13 only
+    python3 chip_smoke.py --dvgo      # phases 1-2 and 14 only
 
 Phases, one line each, any failure exits non-zero:
 
@@ -145,6 +146,17 @@ Phases, one line each, any failure exits non-zero:
                the mutual-NN matcher (top2 at D = 128 launched; registered
                cameras recorded); (e) SuperPoint and one mutual-NN block: top2
                at D = 256 against its plain version, with its times and bound.
+ 14. dvgo    — DVGO's training step (dense/dvgo.py) at the dvgo-160.train
+               cell's sizes (160^3 x 13 grid, 8,192 rays, 558 samples a ray)
+               through make_multi_step: three chunks of 16 (eager, captured
+               and replayed, replayed), both kernels' launches against the
+               steps, the losses finite, peak memory; then one more step
+               with its scatter's cotangents and points recorded, and
+               trilinear_kernel and trilinear_grad_kernel (13 channels: the
+               scalar path) held against their plain versions bit for bit on
+               that step's own points and cotangents, timed, with their
+               bounds. The full run appends both as the ``dvgo`` shape of
+               the two kernels' rows, with the phase's launch counts.
 
 The kernel rows (phase 3): patch_sample_kernel, top2_kernel,
 trilinear_kernel, trilinear_grad_kernel, orient_desc_kernel. The line before
@@ -345,6 +357,9 @@ GRAPH_TURNS = 3
 # theta difference can move a sample) except at near ties (< 5%).
 ORIENT_THETA_TOL = 1e-5
 ORIENT_SAMPLE_TOL = 1e-5
+# Phase 14: the dvgo-160.train cell's step (densify --model dvgo
+# --grid-resolution 160 --dense-batch 8192), in chunks of 16 steps.
+DVGO_RES, DVGO_BATCH, DVGO_CHUNK = 160, 8192, 16
 
 
 # --------------------------------------------------------------------------
@@ -949,6 +964,32 @@ def _recipe_inputs(root: str, scene: dict):
                                stride=RECIPE_FLAGS["ray_stride"]))
 
 
+def _scatter_bits(torch, what, c, mn, mx, res, p) -> float:
+    """trilinear_grad_kernel on cotangents ``c`` at points ``p`` against
+    its plain version on a CPU copy of the inputs, bit for bit, and two
+    launches bit for bit (fails otherwise); returns the max |diff|."""
+    from tpu3d_torch.kernels import trilinear_grad as tg
+
+    out = tg.trilinear_scatter_grad(c, mn, mx, res, p)
+    again = tg.trilinear_scatter_grad(c.clone(), mn.clone(), mx.clone(), res, p.clone())
+    torch.cuda.synchronize()
+    repeat = torch.equal(out, again)
+    del again
+    out = out.cpu()
+    ref = tg.trilinear_scatter_grad_plain(c.cpu(), mn.cpu(), mx.cpu(), res, p.cpu())
+    bits = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    err = float((out - ref).abs().max())
+    print(f"kernel trilinear_grad_kernel {what} (N={len(p)}, C={c.shape[1]}): against the "
+          f"plain version on the CPU bit for bit {'yes' if bits else 'NO'} (max |diff| "
+          f"{err:.3g}, max|plain| {float(ref.abs().max()):.3g}); two launches bit for bit "
+          f"{'yes' if repeat else 'NO'}", flush=True)
+    del out, ref
+    if not (bits and repeat):
+        _fail(f"trilinear_grad_kernel ({what}): bit for bit against the plain version on "
+              f"the CPU {bits}, two launches {repeat} (max |diff| {err:.3g})")
+    return err
+
+
 def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     """trilinear_grad_kernel against its plain version at one training
     step's shape: the 256^3 x 28 grid and the 2,048 x 192 = 393,216 jittered
@@ -970,27 +1011,9 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
     lump = mn + (torch.tensor([100.0, 120.0, 140.0], device=dev)
                  + torch.rand((1500, 3), generator=g, device=dev) * 0.9 + 0.05) * cell
     lump_ct = torch.randn((1500, C), generator=g, device=dev)
-    errs = []
-    for what, p, c in (("training step", pts, ct), ("1,500 points in one cell", lump, lump_ct)):
-        out = tg.trilinear_scatter_grad(c, mn, mx, res, p)
-        again = tg.trilinear_scatter_grad(c.clone(), mn.clone(), mx.clone(), res, p.clone())
-        torch.cuda.synchronize()
-        repeat = torch.equal(out, again)
-        del again
-        out = out.cpu()
-        ref = tg.trilinear_scatter_grad_plain(c.cpu(), mn.cpu(), mx.cpu(), res, p.cpu())
-        bits = torch.equal(out.view(torch.int32), ref.view(torch.int32))
-        err = float((out - ref).abs().max())
-        errs.append(err)
-        print(f"kernel trilinear_grad_kernel {what} (N={len(p)}): against the plain version "
-              f"on the CPU bit for bit {'yes' if bits else 'NO'} (max |diff| {err:.3g}, "
-              f"max|plain| {float(ref.abs().max()):.3g}); two launches bit for bit "
-              f"{'yes' if repeat else 'NO'}", flush=True)
-        del out, ref
-        if not (bits and repeat):
-            _fail(f"trilinear_grad_kernel ({what}): bit for bit against the plain version on "
-                  f"the CPU {bits}, two launches {repeat} (max |diff| {err:.3g})")
-    err = max(errs)
+    err = max(_scatter_bits(torch, what, c, mn, mx, res, p)
+              for what, p, c in (("training step", pts, ct),
+                                 ("1,500 points in one cell", lump, lump_ct)))
     row = _times(torch, lambda: tg.trilinear_scatter_grad(ct, mn, mx, res, pts), 20)
     # The pieces of the call, each alone (CUDA events, wall per launch).
     keys, weights = tg.launch_keys(mn, mx, res, pts)
@@ -1036,6 +1059,105 @@ def _check_trilinear_grad(torch, dev, cfg, ds) -> dict:
                 source="tpu3d_torch/csrc/trilinear_grad.cu",
                 replaces="tpu3d/kernels/trilinear_grad.py:157", max_abs_err=err,
                 bound_ms=bound_ms, bound_by="bytes")
+
+
+def _run_dvgo(torch, dev) -> dict:
+    """Phase 14: DVGO's training step at the dvgo-160.train cell's sizes
+    through make_multi_step, on a seeded grid (every channel 0.1 N(0, 1),
+    so alpha is near alpha_init, as at the start of training) and rays from
+    about (0, 0, -3) into [-1, 1]^3, some missing it: three chunks of 16
+    with the launch counts set to 0 just before them and read just after;
+    then one more step with its scatter's cotangents and points recorded,
+    and both kernels against their plain versions on them. Returns the
+    ``dvgo`` shapes of the trilinear_kernel and trilinear_grad_kernel rows,
+    {"trilinear_kernel": row, "trilinear_grad_kernel": row}."""
+    import torch.nn.functional as F
+
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense import dvgo
+    from tpu3d_torch.dense.grid import VoxelGrid
+    from tpu3d_torch.dense.train import make_multi_step
+    from tpu3d_torch.kernels import LAUNCHES, reset_launches
+    from tpu3d_torch.kernels import trilinear_grad as tg
+
+    R, B, K = DVGO_RES, DVGO_BATCH, DVGO_CHUNK
+    S = dvgo.n_samples((R,) * 3)
+    cfg = DenseConfig(grid_resolution=R, batch_size=B, near=0.1, far=6.0, scene_scale=1.0,
+                      scan_chunk=K)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    n = (3 * K + 1) * B
+    o = (torch.tensor([0.0, 0.0, -3.0], device=dev)
+         + 0.4 * torch.randn((n, 3), generator=g, device=dev))
+    d = F.normalize(torch.tensor([0.0, 0.0, 1.0], device=dev)
+                    + 0.3 * torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    rgb = torch.rand((n, 3), generator=g, device=dev)
+    lo, hi = torch.full((3,), -1.0, device=dev), torch.full((3,), 1.0, device=dev)
+    grid = 0.1 * torch.randn((R, R, R, dvgo.CHANNELS), generator=g, device=dev)
+    state = dvgo.init_state(cfg, VoxelGrid(grid, lo, hi), 3 * K, seed=5)
+    multi = make_multi_step(dvgo.dvgo_train_step, with_occ=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    losses = [multi(state, cfg, torch.arange(c * K * B, (c + 1) * K * B, device=dev).view(K, B),
+                    o, d, rgb, generator=g) for c in range(3)]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = {k: LAUNCHES[k] for k in ("trilinear_kernel", "trilinear_grad_kernel")}
+    replays, eager = multi.replays, multi.eager_chunks
+    multi.release()
+    losses = torch.cat(losses).cpu().numpy()
+    peak = _peak_memory(torch)
+    print(f"dvgo: {3 * K} steps of DVGO's step at {R}^3 x {dvgo.CHANNELS}, {B} rays x {S} "
+          f"samples ({B * S} points a step) through make_multi_step in {secs:.3f} s (eager "
+          f"chunks {eager}, graph replays {replays}); loss {losses[0]:.6f} (step 1) -> "
+          f"{losses[-1]:.6f} (step {3 * K}); peak memory {peak}; launches {launches}",
+          flush=True)
+    if (eager, replays) != (1, 2):
+        _fail(f"dvgo: {eager} eager chunks and {replays} graph replays, expected 1 and 2")
+    for name, got in launches.items():
+        if got != 3 * K:
+            _fail(f"dvgo: {name} launched {got} times in {3 * K} steps")
+    if not np.isfinite(losses).all():
+        _fail(f"dvgo: a loss is not finite: {losses}")
+    # One more step, eager, with the scatter's inputs recorded.
+    seen = {}
+    scatter = tg.trilinear_scatter_grad
+
+    def recording(ct, mn, mx, res, pts):
+        seen.update(ct=ct.clone(), mn=mn, mx=mx, res=res, pts=pts.clone())
+        return scatter(ct, mn, mx, res, pts)
+
+    tg.trilinear_scatter_grad = recording
+    try:
+        ix = torch.arange(3 * K * B, n, device=dev)
+        dvgo.dvgo_train_step(state, cfg, o[ix], d[ix], rgb[ix], generator=g)
+        torch.cuda.synchronize()
+    finally:
+        tg.trilinear_scatter_grad = scatter
+    ct, mn, mx, res, pts = (seen[k] for k in ("ct", "mn", "mx", "res", "pts"))
+    if ct.shape != (B * S, dvgo.CHANNELS) or res != (R,) * 3:
+        _fail(f"dvgo: the step scattered {tuple(ct.shape)} cotangents into {res}")
+    del o, d, rgb, multi
+    vals = state.grid.grid.detach()
+    vol = vals.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
+    fwd = _trilinear_shape(torch, "dvgo", vals, vol, mn, mx, pts)
+    del vol
+    err = _scatter_bits(torch, "dvgo step", ct, mn, mx, res, pts)
+    row = dict(shape="dvgo", N=B * S, max_abs_err=err)
+    row.update(_times(torch, lambda: tg.trilinear_scatter_grad(ct, mn, mx, res, pts), 20))
+    row.update(_times(torch, lambda: tg.trilinear_scatter_grad_plain(ct, mn, mx, res, pts), 3,
+                      "plain_"))
+    C = dvgo.CHANNELS
+    row["bound_ms"] = (4 * C * R ** 3 + 4 * C * B * S + 12 * B * S + 24) / H100_BYTES_PER_S * 1e3
+    print(f"kernel trilinear_grad_kernel dvgo grid {R}^3x{C} N={B * S}: max_abs_err={err:.3g} "
+          f"bound_ms={row['bound_ms']:.4f}; " + _fmt_times(row), flush=True)
+    del state, ct, pts, vals
+    torch.cuda.empty_cache()
+    return {"trilinear_kernel": dict(fwd, launches=launches["trilinear_kernel"]),
+            "trilinear_grad_kernel": dict(row, launches=launches["trilinear_grad_kernel"])}
 
 
 def _orient_desc_inputs(torch, dev, scene, cfg):
@@ -3344,6 +3466,10 @@ def main(argv=()) -> int:
     mode.add_argument("--dist", action="store_true",
                       help="phases 1-2 and 13 only: build, then dist/ over torch.distributed "
                       "(no kernel table)")
+    mode.add_argument("--dvgo", action="store_true",
+                      help="phases 1-2 and 14 only: build, then DVGO's step at the dvgo-160 "
+                      "cell's sizes, its launches and both kernels on its points (no kernel "
+                      "table)")
     # one rank of phase 13, started by the phase itself
     mode.add_argument("--dist-rank", choices=["a", "b"], help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
@@ -3399,6 +3525,11 @@ def main(argv=()) -> int:
             shutil.rmtree(build / "chip_smoke_dist", ignore_errors=True)
         print(smi[0] if smi else "nvidia-smi: no output", flush=True)
         return 0
+    if opts.dvgo:
+        with f32_scope():
+            _run_dvgo(torch, dev)
+        print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+        return 0
     if opts.sdf or opts.learned:
         root = build / ("chip_smoke_sdf" if opts.sdf else "chip_smoke_learned")
         try:
@@ -3447,6 +3578,10 @@ def main(argv=()) -> int:
                        _check_shade_composite(torch, dev), _check_view_rays(torch, dev)]
         del dense
         torch.cuda.empty_cache()
+        with f32_scope():
+            for name, shape in _run_dvgo(torch, dev).items():
+                next(row for row in kernels
+                     if row["name"] == name).setdefault("shapes", []).append(shape)
 
         if kernels_only:
             launches = {row["name"]: None for row in kernels}
@@ -3488,7 +3623,7 @@ def main(argv=()) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wall_ms",
             "host_us", "plain_ms", "plain_wall_ms", "plain_host_us", "bound_ms", "bound_by",
             "library_ms", "library_wall_ms", "library_host_us")
-    shape_keys = ("shape", "max_abs_err", "ms", "wall_ms", "host_us", "plain_ms", "bound_ms",
+    shape_keys = ("shape", "launches", "max_abs_err", "ms", "wall_ms", "host_us", "plain_ms", "bound_ms",
                   "library_ms", "library_wall_ms", "library_host_us")
     table = []
     for row in kernels:

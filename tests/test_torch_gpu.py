@@ -1506,3 +1506,147 @@ def test_prior_step_memory_at_512_cubed(cuda, gen):
     assert peaks["on"] - peaks["off"] < 1e9, peaks
     del st
     _free()
+
+
+def _dvgo_rays(n, gen, dev):
+    """Rays from about (0, 0, -3) into the box [-1, 1]^3, some missing it."""
+    o = torch.tensor([0.0, 0.0, -3.0], device=dev) + 0.4 * torch.randn((n, 3), generator=gen,
+                                                                        device=dev)
+    d = torch.nn.functional.normalize(torch.tensor([0.0, 0.0, 1.0], device=dev)
+                                      + 0.3 * torch.randn((n, 3), generator=gen, device=dev),
+                                      dim=-1)
+    return o, d, torch.rand((n, 3), generator=gen, device=dev)
+
+
+def _dvgo_setup(cuda, gen, res, batch, **kw):
+    from tpu3d_torch.config import DenseConfig
+    from tpu3d_torch.dense import dvgo
+    from tpu3d_torch.dense.grid import VoxelGrid
+
+    cfg = DenseConfig(grid_resolution=res, batch_size=batch, near=0.1, far=6.0, scene_scale=1.0,
+                      **kw)
+    grid = torch.randn((res, res, res, dvgo.CHANNELS), generator=gen, device=cuda)
+    grid[..., 0] *= 2.0
+    lo, hi = torch.full((3,), -1.0, device=cuda), torch.full((3,), 1.0, device=cuda)
+    return cfg, grid, lo, hi, lambda: dvgo.init_state(cfg, VoxelGrid(grid.clone(), lo, hi), 7,
+                                                      seed=5)
+
+
+def test_dvgo_replayed_chunk_equals_eager_chunk(cuda, gen):
+    """DVGO's step through make_multi_step (chunks of 4: eager, captured and
+    replayed, replayed, then an eager tail of 2) against the same steps
+    called one by one: losses, grid, MLP, MaskedAdam's moments and the
+    tallies bit for bit."""
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense import dvgo
+    from tpu3d_torch.dense import train as TT
+
+    cfg, grid, lo, hi, make = _dvgo_setup(cuda, gen, 16, 512, scan_chunk=4)
+    o, d, rgb = _dvgo_rays(14 * 512, gen, cuda)
+    perm = torch.randperm(14 * 512, generator=gen, device=cuda)
+    states, losses = [], []
+    with f32_scope():
+        for graphed in (False, True):
+            st = make()
+            g = torch.Generator(device=cuda)
+            g.manual_seed(11)
+            multi = TT.make_multi_step(dvgo.dvgo_train_step, with_occ=False)
+            out = []
+            for b, k in ((0, 4), (4, 4), (8, 4), (12, 2)):
+                block = perm[b * 512:(b + k) * 512].view(k, 512)
+                if graphed:
+                    out.append(multi(st, cfg, block, o, d, rgb, generator=g))
+                    continue
+                for ix in block:
+                    out.append(dvgo.dvgo_train_step(st, cfg, o[ix], d[ix], rgb[ix],
+                                                    generator=g)[None])
+            torch.cuda.synchronize()
+            if graphed:
+                assert (multi.replays, multi.eager_chunks) == (2, 2)
+                multi.release()
+            states.append(st)
+            losses.append(torch.cat(out).cpu())
+    assert torch.equal(*losses)
+    a, b = states
+    assert a.step == b.step == 14
+    for p, q in zip((a.grid.grid, *a.params), (b.grid.grid, *b.params)):
+        assert torch.equal(p, q)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(a.optimizer.state[p][key], b.optimizer.state[q][key])
+    assert all(torch.equal(x, y) for x, y in zip(a.tallies.values(), b.tallies.values()))
+
+
+def test_dvgo_steps_at_160_match_the_reference(cuda, gen):
+    """Three DVGO steps at the cell's sizes (160^3 x 13, 8192 rays, 558
+    samples) against portbench's plain reference: the losses, the first
+    gradient by leaf and the change by leaf."""
+    from portbench.reference import dvgo as ref
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense import dvgo
+
+    cfg, grid, lo, hi, make = _dvgo_setup(cuda, gen, 160, 8192)
+    grid.mul_(0.1)
+    batches = [_dvgo_rays(8192, gen, cuda) for _ in range(3)]
+    st = make()
+    params0 = [p.detach().clone() for p in st.params]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    with f32_scope():
+        losses = []
+        for t, (o, d, rgb) in enumerate(batches):
+            losses.append(float(dvgo.dvgo_train_step(st, cfg, o, d, rgb, generator=g)))
+            if t == 0:
+                m = [st.optimizer.state[q]["exp_avg"] / 0.1 for q in (st.grid.grid, *st.params)]
+                grad = ref.leaf_norms(ref.leaf_sq_sums(m[0], m[1:]))
+                del m
+    change = ref.leaf_norms(ref.leaf_sq_sums(st.grid.grid.detach(),
+                                             [p.detach() for p in st.params], grid, params0))
+    del st
+    torch.cuda.empty_cache()
+    g.manual_seed(3)
+    draws = [torch.rand((8192, 1), generator=g, device=cuda) for _ in batches]
+    want = ref.train_steps(ref.Spec((160,) * 3, 1.0, 0.1, 6.0), grid, params0, lo, hi, batches,
+                           draws)
+    assert dvgo.n_samples((160,) * 3) == 558
+    for a, b in zip(losses, want["losses"]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for key, got in (("grad", grad), ("change", change)):
+        for leaf, v in want[key].items():
+            assert abs(got[leaf] - v) <= 1e-3 * v, (key, leaf, got[leaf], v)
+
+
+def test_dvgo_spans_and_counters_are_recorded(cuda, gen, monkeypatch):
+    """While tracing, an eager chunk records ``dense.rgbnet`` and
+    ``dense.rgbnet_backward`` device spans a step (the backward's from the
+    autograd engine's thread, under the chunk), a replayed chunk's graph
+    marks hold both a step, and a loss read-back folds both tallies into
+    the tracer's counters."""
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense import dvgo
+    from tpu3d_torch.dense import train as TT
+    from tpu3d_torch.utils import trace
+
+    monkeypatch.setattr(trace, "_GLOBAL", None)
+    monkeypatch.setattr(trace, "_ENABLED", True)
+    cfg, grid, lo, hi, make = _dvgo_setup(cuda, gen, 16, 256, scan_chunk=2)
+    o, d, rgb = _dvgo_rays(8 * 256, gen, cuda)
+    st = make()
+    multi = TT.make_multi_step(dvgo.dvgo_train_step, with_occ=False)
+    with f32_scope():
+        for b in range(0, 8, 2):
+            multi(st, cfg, torch.arange(b * 256, (b + 2) * 256, device=cuda).view(2, 256), o, d,
+                  rgb, generator=gen)
+        torch.cuda.synchronize()
+        multi.release()
+    TT.fold_tallies(st)
+    tr = trace.get_tracer()
+    events = tr.spans()
+    chunks = {e["id"]: e["args"]["mode"] for e in events if e["name"] == "dense.chunk"}
+    for name in ("dense.rgbnet", "dense.rgbnet_backward"):
+        modes = sorted(chunks[e["parent"]] for e in events
+                       if e["name"] == name and e["parent"] in chunks)
+        assert modes.count("eager") == 2 and modes.count("replay") >= 2, (name, modes)
+    counters = tr.summary()["counters"]
+    S = dvgo.n_samples((16,) * 3)
+    assert counters["dense.rgbnet_rows"] == 8 * 256 * S
+    assert 0 < counters["dense.colour_samples"] <= counters["dense.rgbnet_rows"]

@@ -1,7 +1,8 @@
 """The port's entry points: tpu3d's staged sparse commands ``cli extract``,
 ``match``, ``reconstruct`` and ``export`` (tpu3d/cli.py:147-229, :286-416,
 :1118-1125), ``cli full`` (images to poses, points and PLY, :1167-1223),
-``cli densify`` (training, :417-820, the plenoxel or the SDF model),
+``cli densify`` (training, :417-820, the plenoxel or the SDF model, or DVGO's
+fine stage, dense/dvgo.py),
 ``cli densify --eval-only`` (:847-920), ``cli render`` (:1011-1115),
 ``cli mesh`` (:973-1008) and ``cli ingest`` (:1129-1164).
 
@@ -17,7 +18,7 @@
         [--limit N] [--mode incremental|global] [--register-all] [--ply out.ply]
         [--frontend ... --frontend-weights W] [--matcher ... --matcher-weights W]
         [tpu3d's sparse-stage flags]
-    python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--model plenoxel|sdf]
+    python -m tpu3d_torch.cli densify --images DIR --artifacts DIR [--model plenoxel|sdf|dvgo]
         [--epochs N] [--ray-stride S] [--norm coremax|core|legacy] [--hierarchical]
         [--contraction [--norm-core-q Q --norm-core-radius R --band-core-radius B]]
         [--coarse-epochs N] [--occupancy] [--camera-gate --camera-gate-epoch E]
@@ -27,7 +28,7 @@
         [--no-checkpoint [--final-grid]] [--resume]
         [--distributed auto|HOST:PORT,N,PID --mesh auto|DxM]
     python -m tpu3d_torch.cli densify --rays-pkl F [--test-rays-pkl F] [--near N --far F]
-        [--model plenoxel|sdf] --images DIR --artifacts DIR
+        [--model plenoxel|sdf|dvgo] --images DIR --artifacts DIR
     python -m tpu3d_torch.cli densify --eval-only --images DIR --artifacts DIR
     python -m tpu3d_torch.cli render --images DIR --artifacts DIR [--orbit N]
     python -m tpu3d_torch.cli mesh --images DIR --artifacts DIR [--iso L] [--out F.ply]
@@ -97,6 +98,7 @@ from tpu3d_torch.config import (BAConfig, CameraConfig, DenseConfig, FrontendCon
                                 MatchingConfig, PipelineConfig, RansacConfig, SfMConfig)
 from tpu3d_torch.dense.eval import (dataset_from_views, evaluate_views, interpolate_poses,
                                     render_view, split_views_by_name)
+from tpu3d_torch.dense import dvgo
 from tpu3d_torch.dense.contract import contract
 from tpu3d_torch.dense.grid import VoxelGrid, create_grid, grid_from_mesh_grid, grid_from_tpu3d
 from tpu3d_torch.dense.render import render_image
@@ -160,12 +162,18 @@ def render_artifacts(artifacts: Artifacts, image_hw: Tuple[int, int], focal: flo
     store = _store(artifacts)
     rec = _load(store, "reconstruction", "run `reconstruct` first")
     d = store.load("dense_grid")
+    rgbnet = None
+    dm = store.load_json("dense_meta") or {}
     if d is not None:
         grid, bg_sh = grid_from_tpu3d(d, dev)
+        rgbnet = dvgo.rgbnet_from_arrays(d, dev)
+    elif dm.get("model") == "dvgo":
+        raise FileNotFoundError(f"no dense_grid in {store.root}: a DVGO model renders from "
+                                "its dense_grid (densify it without --no-checkpoint, or with "
+                                "--final-grid)")
     else:
         grid = grid_from_mesh_grid(_load(store, "mesh_grid", "run `densify` first"), dev)
         bg_sh = None
-    dm = store.load_json("dense_meta") or {}
     if "norm_center" in dm:
         norm = SceneNormalization(np.asarray(dm["norm_center"], np.float32),
                                   float(dm["norm_scale"]))
@@ -186,11 +194,12 @@ def render_artifacts(artifacts: Artifacts, image_hw: Tuple[int, int], focal: flo
             print(f"view {v} out of range (registered: {len(cams)})", file=sys.stderr)
             continue
         frames[f"view_{v:04d}.png"] = render_view(grid, cams[v], H, W, focal, cfg, norm,
-                                                  stride=stride, bg_sh=bg_sh)
+                                                  stride=stride, bg_sh=bg_sh, rgbnet=rgbnet)
     if orbit > 0:
         for k, cam in enumerate(interpolate_poses(cams, orbit)):
             frames[f"orbit_{k:04d}.png"] = render_view(grid, cam, H, W, focal, cfg, norm,
-                                                       stride=stride, bg_sh=bg_sh)
+                                                       stride=stride, bg_sh=bg_sh,
+                                                       rgbnet=rgbnet)
     return frames
 
 
@@ -210,7 +219,9 @@ def densify_eval_only(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[
     dm = store.load_json("dense_meta")
     if dm is None:
         raise FileNotFoundError(f"no dense_meta in {store.root}: run densify first")
-    grid, bg_sh = grid_from_tpu3d(_load(store, "dense_grid", "run densify first"), dev)
+    saved = _load(store, "dense_grid", "run densify first")
+    grid, bg_sh = grid_from_tpu3d(saved, dev)
+    rgbnet = dvgo.rgbnet_from_arrays(saved, dev)
     dd = store.load("dense_grid_detail")
     detail = None if dd is None else grid_from_tpu3d(dd, dev)[0]
     norm = SceneNormalization(np.asarray(dm["norm_center"], np.float32),
@@ -225,7 +236,7 @@ def densify_eval_only(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[
                             max_views=max_eval_views, bg_sh=bg_sh, base_grid=grid)
     else:
         ev = evaluate_views(grid, cams[test_idx], rgb, focal, cfg, norm, stride=2,
-                            max_views=max_eval_views, bg_sh=bg_sh)
+                            max_views=max_eval_views, bg_sh=bg_sh, rgbnet=rgbnet)
     out = {
         "eval_only": True, "cascade": detail is not None,
         "test_psnr": ev["mean_psnr"],
@@ -341,6 +352,15 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     ``model="sdf"`` trains the SDF grid instead (``train_sdf``, no
     checkpoints and no cascade, as in tpu3d) and scores and records it with
     its training band: near 1e-3, far 1e3, per-ray box clipping.
+    ``model="dvgo"`` trains DVGO's fine stage (dense/dvgo.py ``train_dvgo``:
+    a 13-channel grid at ``grid_resolution``^3 and the colour MLP, at DVGO's
+    published settings, with checkpoints and ``resume``), saves the MLP
+    beside the grid in ``dense_grid`` (and no ``mesh_grid``: ``mesh``
+    refuses the model) and scores it; the options it does not
+    take (``mesh``, ``contraction``, ``hierarchical``, the cascade's,
+    ``occupancy``, ``camera_gate``, ``optimizer`` rmsprop, the priors,
+    ``exposure``, ``sh_background``, ``coarse_epochs``, ``aniso_grid``)
+    raise a ValueError.
 
     Under ``contraction`` per-ray box clipping is off, ``occupancy`` is
     dropped (the disparity tail takes its place) and ``aniso_grid`` is
@@ -368,8 +388,17 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     in tpu3d; only rank 0 writes artifacts and evaluates (the other ranks
     return their rank and last loss)."""
     dev = resolve_device(device)
-    if model not in ("plenoxel", "sdf"):
-        raise ValueError(f"unknown dense model {model!r}: plenoxel or sdf")
+    if model not in ("plenoxel", "sdf", "dvgo"):
+        raise ValueError(f"unknown dense model {model!r}: plenoxel, sdf or dvgo")
+    if model == "dvgo":
+        dvgo.check_flags({
+            "--mesh": mesh, "--contraction": contraction, "--hierarchical": hierarchical,
+            "--detail-epochs": detail_epochs, "--detail-res": detail_res,
+            "--detail-only": detail_only, "--occupancy": occupancy,
+            "--camera-gate": camera_gate, "--dense-optimizer rmsprop": optimizer == "rmsprop",
+            "--tv-sigma": tv_sigma, "--tv-sh": tv_sh, "--sparsity-sigma": sparsity_sigma,
+            "--exposure": exposure, "--sh-background": sh_background,
+            "--coarse-epochs": coarse_epochs, "--aniso-grid": aniso_grid})
     if model == "sdf" and detail_only:
         raise ValueError("--detail-only needs a saved dense_grid and the plenoxel model")
     dmesh = _dense_mesh(mesh, verbose) if mesh else None
@@ -440,6 +469,7 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
         print(f"scene-derived sampling band: near={near:.3f} far={far:.3f}; "
               f"{len(dataset.origins)} rays from {len(train_idx)} train cameras "
               f"({len(test_idx)} held out)", flush=True)
+    rgbnet = None
     if detail_only:
         grid, bg_sh = grid_from_tpu3d(_load(store, "dense_grid", "run the base densify with "
                                             "--final-grid first"), dev)
@@ -455,6 +485,11 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
         # no cascade for the SDF model (tpu3d/cli.py:625); scored and recorded with the training band (tpu3d/cli.py:613-618)
         near, far, per_ray_aabb = 1e-3, 1e3, True
         cfg = dataclasses.replace(cfg, near=near, far=far, per_ray_aabb=per_ray_aabb)
+    elif model == "dvgo":
+        grid, rgbnet, losses = dvgo.train_dvgo(
+            dataset, cfg, verbose=verbose, log_every=log_every,
+            checkpoint_store=None if no_checkpoint else store, resume=resume, device=dev)
+        bg_sh, dropped = None, []
     else:
         grid, losses = train_plenoxel(dataset, cfg, verbose=verbose, log_every=log_every,
                                       checkpoint_store=None if no_checkpoint else store,
@@ -486,13 +521,17 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
     bounds = dict(min_bound=grid.min_bound.cpu().numpy(), max_bound=grid.max_bound.cpu().numpy())
     if (not no_checkpoint or final_grid) and not detail_only:
         store.save("dense_grid", grid=grid.grid.cpu().numpy(), **bounds,
-                   **({} if bg_sh is None else {"bg_sh": bg_sh.cpu().numpy()}))
-    # density and the SH DC of each colour, f16: what `cli mesh` reads
-    store.save("mesh_grid", grid=grid.grid[..., [0, 1, 10, 19]].cpu().numpy().astype(np.float16),
-               **bounds, contraction=np.asarray(contraction))
+                   **({} if bg_sh is None else {"bg_sh": bg_sh.cpu().numpy()}),
+                   **({} if rgbnet is None else dvgo.rgbnet_arrays(rgbnet)))
+    # density and the SH DC of each colour, f16: what `cli mesh` reads (a
+    # DVGO grid has no colour without its MLP: no mesh_grid)
+    if rgbnet is None:
+        store.save("mesh_grid", grid=grid.grid[..., [0, 1, 10, 19]].cpu().numpy()
+                   .astype(np.float16), **bounds, contraction=np.asarray(contraction))
     store.save_json("dense_meta", {
         "model": model, "near": float(near), "far": float(far),
-        "num_samples": int(num_samples), "per_ray_aabb": bool(per_ray_aabb),
+        "num_samples": int(dvgo.n_samples(grid.resolution) if rgbnet is not None
+                           else num_samples), "per_ray_aabb": bool(per_ray_aabb),
         "downscale": int(downscale), "contraction": bool(contraction),
         "norm_center": np.asarray(nrm.center, np.float64).tolist(),
         "norm_scale": float(nrm.scale),
@@ -508,7 +547,7 @@ def densify(artifacts: Artifacts, rgb_u8: np.ndarray, names: Sequence[str], foca
                                 stride=2, max_views=max_eval_views, bg_sh=bg_sh, base_grid=grid)
         else:
             ev = evaluate_views(grid, cams[test_idx], rgb[test_idx], focal, cfg, nrm, stride=2,
-                                max_views=max_eval_views, bg_sh=bg_sh)
+                                max_views=max_eval_views, bg_sh=bg_sh, rgbnet=rgbnet)
         out.update(test_psnr=ev["mean_psnr"],
                    test_psnr_per_view=[round(float(p), 2) for p in ev["per_view"]],
                    test_psnr_calibrated=ev["mean_psnr_calibrated"],
@@ -543,9 +582,12 @@ def densify_from_rays(artifacts: Artifacts, rays_pkl: str, *, test_rays_pkl: str
     ``scene_scale`` (1.5 where 0); save ``dense_grid`` unless
     ``no_checkpoint``; with ``test_rays_pkl``, the PSNR of its rays
     rendered by the trained grid. ``model="sdf"`` trains the SDF grid
-    (``train_sdf``: no checkpoints, no resume). Returns {final_loss,
+    (``train_sdf``: no checkpoints, no resume); ``model="dvgo"`` is refused
+    (DVGO trains from registered views: ``densify``). Returns {final_loss,
     psnr_train_proxy[, test_psnr]}; writes no dense_result."""
     dev = resolve_device(device)
+    if model == "dvgo":
+        raise ValueError("--rays-pkl trains the plenoxel or the SDF model, not --model dvgo")
     store = _store(artifacts)
     dataset = load_ray_dataset(rays_pkl)
     if verbose:
@@ -588,6 +630,9 @@ def mesh(artifacts: Artifacts, iso: float = 0.0, out: str = "") -> dict:
     from tpu3d_torch.io.ply import write_ply_mesh
 
     store = _store(artifacts)
+    if (store.load_json("dense_meta") or {}).get("model") == "dvgo":
+        raise ValueError("`mesh` reads a plenoxel or SDF grid's density and SH colour; a "
+                         "DVGO model's colour comes from its MLP and has no mesh_grid")
     d = _load(store, "mesh_grid", "run `densify` first")
     sigma = d["grid"][..., 0].astype(np.float32)
     # channels [sigma, SH DC r, g, b]; the DC basis is 0.282095
@@ -1232,8 +1277,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--test-rays-pkl", default="", help="rays-pkl: held-out ray file")
     p.add_argument("--near", type=float, default=0.0, help="rays-pkl: band near (0 = 2)")
     p.add_argument("--far", type=float, default=0.0, help="rays-pkl: band far (0 = 6)")
-    p.add_argument("--model", choices=["plenoxel", "sdf"], default="plenoxel",
-                   help="densify: the plenoxel grid or the SDF grid")
+    p.add_argument("--model", choices=["plenoxel", "sdf", "dvgo"], default="plenoxel",
+                   help="densify: the plenoxel grid, the SDF grid or DVGO's fine stage (a "
+                        "density and 12-channel feature grid with a colour MLP)")
     p.add_argument("--mesh", default="",
                    help="densify: train on a (data, model) mesh of the process group: 'auto' "
                         "(every rank a voxel brick) or 'DxM' (D ray shards x M bricks; D x M = "

@@ -1,4 +1,5 @@
-"""Dense stage: voxel radiance and SDF grids, rendering, training,
+"""Dense stage: voxel radiance and SDF grids, DVGO's grid with its colour
+MLP (dense/dvgo.py), rendering, training,
 held-out evaluation, voxel traversal and meshing."""
 from tpu3d_torch.dense.grid import VoxelGrid, eval_sh, trilinear_sample
 from tpu3d_torch.dense.render import composite, render_rays

@@ -18,6 +18,7 @@ import torch
 
 from tpu3d_torch.config import DenseConfig
 from tpu3d_torch.core import lie
+from tpu3d_torch.dense import dvgo
 from tpu3d_torch.dense.grid import VoxelGrid
 from tpu3d_torch.dense.render import render_image
 from tpu3d_torch.dense.train import RayDataset, SceneNormalization, psnr, rays_from_cameras
@@ -108,7 +109,8 @@ def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
                 stride: int = 1, chunk: int = 8192,
                 bg_sh: Optional[torch.Tensor] = None,
                 rays: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                base_grid: Optional[VoxelGrid] = None) -> np.ndarray:
+                base_grid: Optional[VoxelGrid] = None,
+                rgbnet: Optional[Tuple[torch.Tensor, ...]] = None) -> np.ndarray:
     """One full camera view on the grid's device -> (H', W', 3) float
     numpy. rays: optional precomputed (origins, dirs) from view_rays.
     Without them a CUDA grid's view builds its rays on the card
@@ -117,7 +119,9 @@ def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
     (``render.ray_build``), ``render.upload`` (host rays to the device; not
     on the card's build), ``render.enqueue`` (render_image's chunks) and
     ``render.image_copy`` (the image to the host, where the host waits for
-    the card)."""
+    the card). With ``rgbnet`` (the colour MLP's leaves) ``grid`` is a DVGO
+    model's, rendered by dense/dvgo.py ``render_image`` (its own sampler,
+    the MLP colour head, eager compositing)."""
     h = len(range(0, H, stride))
     w = len(range(0, W, stride))
     with hot_span("render.view", rays=h * w, chunks=-(-h * w // chunk)):
@@ -129,9 +133,12 @@ def render_view(grid: VoxelGrid, cam: np.ndarray, H: int, W: int, focal: float,
             with hot_span("render.upload"):
                 ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
         with hot_span("render.enqueue"):
-            img = render_image(grid, ro, rd, cfg.near, cfg.far, cfg.num_samples, chunk=chunk,
-                               clip_aabb=cfg.per_ray_aabb, bg_sh=bg_sh,
-                               contract=cfg.contraction, base_grid=base_grid)
+            if rgbnet is not None:
+                img = dvgo.render_image(grid, rgbnet, ro, rd, cfg.near, cfg.far, chunk)
+            else:
+                img = render_image(grid, ro, rd, cfg.near, cfg.far, cfg.num_samples,
+                                   chunk=chunk, clip_aabb=cfg.per_ray_aabb, bg_sh=bg_sh,
+                                   contract=cfg.contraction, base_grid=base_grid)
         with hot_span("render.image_copy"):
             return img.cpu().numpy().reshape(h, w, 3)
 
@@ -149,13 +156,15 @@ def evaluate_views(grid: VoxelGrid, cams: np.ndarray, images_rgb: np.ndarray,
                    norm: Optional[SceneNormalization] = None,
                    stride: int = 2, chunk: int = 8192, max_views: int = 0,
                    bg_sh: Optional[torch.Tensor] = None,
-                   base_grid: Optional[VoxelGrid] = None) -> dict:
+                   base_grid: Optional[VoxelGrid] = None,
+                   rgbnet: Optional[Tuple[torch.Tensor, ...]] = None) -> dict:
     """PSNR of renders against the photographs of the given cameras: raw,
     and exposure-calibrated (3 gains fit on the left half, scored on the
     right), plus the split between rays passing the unit ball (core) and
     the rest. Returns {"per_view", "mean_psnr", "per_view_calibrated",
     "mean_psnr_calibrated", "psnr_core", "psnr_background",
-    "core_pixel_fraction", "renders"}."""
+    "core_pixel_fraction", "renders"}. ``rgbnet``: a DVGO model's colour
+    MLP."""
     n = len(cams) if not max_views else min(len(cams), max_views)
     per_view: List[float] = []
     per_view_cal: List[float] = []
@@ -166,7 +175,7 @@ def evaluate_views(grid: VoxelGrid, cams: np.ndarray, images_rgb: np.ndarray,
     for m in range(n):
         ro, rd = view_rays(cams[m], H, W, focal, norm, stride)
         pred = render_view(grid, cams[m], H, W, focal, cfg, norm, stride, chunk,
-                           bg_sh=bg_sh, rays=(ro, rd), base_grid=base_grid)
+                           bg_sh=bg_sh, rays=(ro, rd), base_grid=base_grid, rgbnet=rgbnet)
         gt = images_rgb[m, ::stride, ::stride].astype(np.float32) / 255.0
         gt = gt[: pred.shape[0], : pred.shape[1]]
         per_view.append(psnr(pred, gt))

@@ -6,7 +6,10 @@ SH-background latents, the stochastic TV and sparsity priors, one training
 step and ``train_plenoxel``, with tpu3d's ``dense_ckpt`` checkpoints, its
 coarse-to-fine phase, its occupancy refreshes, its camera gate and the
 frozen base of its two-level cascade, on tpu3d's loop cadence; and the SDF
-grid's step and loop (``sdf_train_step``, ``train_sdf``).
+grid's step and loop (``sdf_train_step``, ``train_sdf``). The loop also
+trains DVGO's fine stage (dense/dvgo.py): a state with further leaves (its
+colour MLP) in a second parameter group, per-group schedules with DVGO's
+exponential decay, and DVGO's ``MaskedAdam``.
 
 tpu3d has two step routes, ``make_train_step`` (XLA autodiff through the
 gather) and ``make_train_step_packed`` (the Pallas kernel pair), and the
@@ -29,7 +32,8 @@ import torch
 from tpu3d_torch import f32_scope, resolve_device
 from tpu3d_torch.config import DenseConfig
 from tpu3d_torch.core import lie
-from tpu3d_torch.dense.grid import VoxelGrid, create_grid, eval_sh, grid_tensor, resample_grid
+from tpu3d_torch.dense.grid import (CHANNELS, VoxelGrid, create_grid, eval_sh, grid_tensor,
+                                    resample_grid)
 from tpu3d_torch.dense.occupancy import occupancy_from_grid
 from tpu3d_torch.dense.render import jitter_width, render_rays, render_rays_hierarchical
 from tpu3d_torch.dense.sdf import ray_aabb
@@ -37,7 +41,7 @@ from tpu3d_torch.io.ply import filter_point_cloud
 from tpu3d_torch.kernels import LAUNCHES
 from tpu3d_torch.kernels.rmsprop import rmsprop_update
 from tpu3d_torch.utils.cuda_graph import capture
-from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span
+from tpu3d_torch.utils.trace import device_span, get_tracer, graph_marks, hot_span, tracing
 
 
 class RayDataset(NamedTuple):
@@ -180,17 +184,21 @@ LAST_TRAIN_AUX: Dict[str, object] = {}
 class LrSchedule(NamedTuple):
     """optax.piecewise_constant_schedule(lr, {m * steps_per_epoch: gamma}):
     the lr of update k (0-based) is lr * gamma^#{m : m * steps_per_epoch <=
-    k}. Called with an int it gives the host's float; :meth:`on_device`
-    gives the same number from a device count, for a step that a CUDA graph
-    replays."""
+    k}, and with ``decay_steps`` also times 0.1^(k / decay_steps) (DVGO's
+    per-step exponential decay, in closed form). Called with an int it gives
+    the host's float; :meth:`on_device` gives the same number from a device
+    count, for a step that a CUDA graph replays."""
     base: float
     boundaries: Tuple[Tuple[int, float], ...]   # (update count, scale), sorted
+    decay_steps: float = 0.0
 
     def __call__(self, count: int) -> float:
         v = self.base
         for b, scale in self.boundaries:
             if count >= b:
                 v *= scale
+        if self.decay_steps:
+            v *= 0.1 ** (count / self.decay_steps)
         return v
 
     def on_device(self, count: torch.Tensor) -> torch.Tensor:
@@ -200,6 +208,8 @@ class LrSchedule(NamedTuple):
         v = torch.full((), self.base, dtype=torch.float64, device=count.device)
         for b, scale in self.boundaries:
             v = torch.where(count >= b, v * scale, v)
+        if self.decay_steps:
+            v = v * torch.full_like(v, 0.1).pow(count.double() / self.decay_steps)
         return v.float()
 
 
@@ -232,6 +242,48 @@ class RMSprop(torch.optim.Optimizer):
                 if p.grad is not None:
                     rmsprop_update(p, p.grad, self.state[p]["nu"], group["lr"],
                                    group["decay"], group["eps"])
+
+
+class MaskedAdam(torch.optim.Optimizer):
+    """DVGO's MaskedAdam (lib/masked_adam.py and its CUDA updates): Adam with
+    eps outside the root and the step size lr sqrt(1 - b2^t) / (1 - b1^t),
+    p -= step m / (sqrt(v) + eps). In a group with ``skip_zero_grad`` an
+    element whose gradient is exactly zero is not touched: its p, m and v
+    stay as they are; other groups update every element. Plain torch and
+    capturable: the moments and the step count live on the parameters'
+    device from the start, each group's lr is a 0-d device tensor that the
+    training step sets, and the step size is computed there."""
+
+    def __init__(self, groups, betas: Tuple[float, float] = (0.9, 0.99), eps: float = 1e-8):
+        super().__init__(groups, dict(betas=betas, eps=eps, skip_zero_grad=False))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {"step": torch.zeros((), dtype=torch.float32, device=p.device),
+                                 "exp_avg": torch.zeros_like(p),
+                                 "exp_avg_sq": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st, g = self.state[p], p.grad
+                st["step"].add_(1)
+                t = st["step"].double()
+                size = (group["lr"].double() * torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)).float()
+                m = st["exp_avg"].mul(b1).add_(g, alpha=1 - b1)
+                v = st["exp_avg_sq"].mul(b2).addcmul_(g, g, value=1 - b2)
+                upd = m.mul(size).div_(v.sqrt().add_(group["eps"]))
+                if group["skip_zero_grad"]:
+                    nz = g != 0
+                    m = torch.where(nz, m, st["exp_avg"])
+                    v = torch.where(nz, v, st["exp_avg_sq"])
+                    upd.masked_fill_(~nz, 0.0)
+                st["exp_avg"].copy_(m)
+                st["exp_avg_sq"].copy_(v)
+                p.sub_(upd)
 
 
 def make_optimizer(cfg: DenseConfig, grid: torch.Tensor) -> torch.optim.Optimizer:
@@ -271,11 +323,38 @@ class TrainState:
     # Updates so far, a 0-d int64 tensor on the grid's device: the lr
     # schedule and the latents' bias correction read it there.
     count: Optional[torch.Tensor] = None
+    # The model's leaves beside the grid (DVGO's colour MLP), the optimizer's
+    # second parameter group, and their lr schedule.
+    params: Tuple[torch.Tensor, ...] = ()
+    params_lr: Optional[LrSchedule] = None
+    # Counters that the step adds to on the device (0-d int64 tensors by
+    # tracer counter name), folded into the tracer at a loss read-back.
+    tallies: Optional[Dict[str, torch.Tensor]] = None
 
     def set_step(self, step: int) -> None:
         """Set the update count on the host and on the device."""
         self.step = int(step)
         self.count.fill_(self.step)
+
+    def schedules(self) -> Tuple[LrSchedule, ...]:
+        """Each parameter group's lr schedule: the grid's, then the
+        further leaves'."""
+        return (self.lr,) + ((self.params_lr,) if self.params else ())
+
+
+def fold_tallies(state: TrainState) -> None:
+    """The step's device tallies added to the tracer's counters while
+    tracing is on, and zeroed in place (a captured step keeps adding to the
+    same tensors): at a loss read-back, when the card has finished the
+    chunk, so the one read waits for nothing."""
+    if not state.tallies:
+        return
+    values = torch.stack(list(state.tallies.values())).tolist()
+    for t in state.tallies.values():
+        t.zero_()
+    if tracing():
+        for name, v in zip(state.tallies, values):
+            get_tracer().count(name, v)
 
 
 def init_exposure(n_cams: int, device="cpu") -> torch.Tensor:
@@ -537,9 +616,8 @@ def _update(state: TrainState, cfg: DenseConfig, loss: torch.Tensor,
             _exposure_adam(state.exposure, gains.grad, state.count, cfg.exposure_lr)
         if bg_sh is not None:
             _exposure_adam(state.background, bg_sh.grad, state.count, cfg.background_lr)
-        lr = state.lr.on_device(state.count)
-        for group in state.optimizer.param_groups:
-            group["lr"].copy_(lr)
+        for group, schedule in zip(state.optimizer.param_groups, state.schedules()):
+            group["lr"].copy_(schedule.on_device(state.count))
     with device_span("dense.optimizer"):
         state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
@@ -659,6 +737,11 @@ def save_checkpoint(store, state: TrainState, epoch: int, losses: List[float],
                    for k, v in state.optimizer.state.get(p, {}).items()
                    if torch.is_tensor(v) and v.dim() == 4}
     extra = {}
+    for i, q in enumerate(state.params):
+        st = state.optimizer.state[q]
+        extra.update({f"param_{i}": q.detach().cpu().numpy(),
+                      f"param_{i}_m": st["exp_avg"].cpu().numpy(),
+                      f"param_{i}_v": st["exp_avg_sq"].cpu().numpy()})
     if state.exposure is not None:
         extra["exposure"] = state.exposure.cpu().numpy()
     if state.background is not None:
@@ -673,13 +756,15 @@ def save_checkpoint(store, state: TrainState, epoch: int, losses: List[float],
 
 
 def load_checkpoint(store, cfg: DenseConfig, steps_per_epoch: int, device,
-                    rows: Optional[Tuple[int, int]] = None
+                    rows: Optional[Tuple[int, int]] = None, init: Optional[Callable] = None
                     ) -> Optional[Tuple[TrainState, int, List[float]]]:
     """(state, epoch, losses) from a ``dense_ckpt`` that tpu3d or the port
     wrote, or None. A grid and moments saved in tpu3d's packed layout are
     unpacked; the optimizer's leaves fill torch.optim.Adam's step, exp_avg
-    and exp_avg_sq (rmsprop: nu). ``rows`` (lo, hi) reads only those X rows
-    of the grid and its moments (a brick of a sharded grid)."""
+    and exp_avg_sq (rmsprop: nu); the further leaves (``param_i``) and
+    their moments fill the state's own in place. ``rows`` (lo, hi) reads
+    only those X rows of the grid and its moments (a brick of a sharded
+    grid). ``init`` builds the state (:func:`init_state`'s signature)."""
     data = store.load("dense_ckpt") if rows is None else store.load("dense_ckpt", rows=rows)
     if data is None:
         return None
@@ -687,8 +772,10 @@ def load_checkpoint(store, cfg: DenseConfig, steps_per_epoch: int, device,
     def vec(name):
         return torch.as_tensor(np.asarray(data[name], np.float32), device=device)
 
-    grid = VoxelGrid(grid_tensor(data["grid"], device), vec("min_bound"), vec("max_bound"))
-    state = init_state(cfg, grid, steps_per_epoch)
+    channels = np.asarray(data["grid"]).shape[-1] if np.ndim(data["grid"]) == 4 else CHANNELS
+    grid = VoxelGrid(grid_tensor(data["grid"], device, channels), vec("min_bound"),
+                     vec("max_bound"))
+    state = (init or init_state)(cfg, grid, steps_per_epoch)
     state.set_step(int(data["step"]))
     state.exposure = vec("exposure") if "exposure" in data else None
     state.background = vec("background") if "background" in data else None
@@ -698,8 +785,15 @@ def load_checkpoint(store, cfg: DenseConfig, steps_per_epoch: int, device,
     else:
         state.optimizer.state[p] = {
             "step": torch.tensor(float(data["opt_0"]), dtype=torch.float32, device=device),
-            "exp_avg": grid_tensor(data["opt_1"], device),
-            "exp_avg_sq": grid_tensor(data["opt_2"], device)}
+            "exp_avg": grid_tensor(data["opt_1"], device, channels),
+            "exp_avg_sq": grid_tensor(data["opt_2"], device, channels)}
+    for i, q in enumerate(state.params):
+        st = state.optimizer.state[q]
+        with torch.no_grad():
+            q.copy_(vec(f"param_{i}"))
+        st["exp_avg"].copy_(vec(f"param_{i}_m"))
+        st["exp_avg_sq"].copy_(vec(f"param_{i}_v"))
+        st["step"].fill_(float(data["opt_0"]))
     return state, int(data["epoch"]), [float(x) for x in data["losses"]]
 
 
@@ -933,14 +1027,17 @@ class _LossLog:
         self.steps = 0      # the loop's steps so far, the current chunk's included
         self.t0 = time.time()
 
-    def chunk(self, lc: torch.Tensor, b: int, epoch: int, updates: int) -> None:
-        """The chunk of steps b, b + 1, ... that ends at update ``updates``."""
+    def chunk(self, lc: torch.Tensor, b: int, epoch: int, updates: int) -> bool:
+        """The chunk of steps b, b + 1, ... that ends at update ``updates``.
+        Returns whether it read a loss back."""
         k = lc.shape[0]
         self.steps += k
+        read = False
         for j in range(b, b + k):
             if j % self.log_every:
                 continue
             lv = float(lc[j - b])
+            read = True
             self.losses.append(lv)
             self.entries.append({"epoch": epoch, "step": j, "update": updates - (b + k - 1 - j),
                                  "loss": lv, "seconds": time.time() - self.t0})
@@ -948,6 +1045,7 @@ class _LossLog:
                 rate = self.steps * self.batch / (time.time() - self.t0)
                 print(f"{self.prefix} epoch {epoch} step {j}/{self.steps_per_epoch} "
                       f"loss {lv:.5f} ({rate:.0f} rays/s)", flush=True)
+        return read
 
 
 def _graph_record(multi: MultiStep) -> dict:
@@ -981,8 +1079,9 @@ def _record(state: TrainState, log: _LossLog, phases: List[dict], phase: str, re
     """A training loop's record: its phase entry (name, grid resolution,
     steps, log, seconds and ``graphs``, how its chunks ran) appended to
     ``phases``, and LAST_TRAIN_AUX anew (the latents, the log, the step
-    count, the phases; ``aux`` sets the camera gate's and the occupancy
-    refreshes' keys, or adds the loop's own)."""
+    count, the phases, the model's further leaves ``params``; ``aux`` sets
+    the camera gate's and the occupancy refreshes' keys, or adds the loop's
+    own)."""
     phases.append(dict(phase=phase, res=list(res), steps=steps, log=log.entries,
                        seconds=time.time() - log.t0, **(graphs or {})))
     LAST_TRAIN_AUX.clear()
@@ -990,7 +1089,7 @@ def _record(state: TrainState, log: _LossLog, phases: List[dict], phase: str, re
         background=None if state.background is None else state.background[0].cpu().numpy(),
         exposure=None if state.exposure is None else state.exposure[0].cpu().numpy(),
         dropped_cameras=[], log=log.entries, steps=state.step, occupancy_refreshes=[],
-        camera_gate=None, phases=phases)
+        camera_gate=None, phases=phases, params=tuple(p.detach() for p in state.params))
     LAST_TRAIN_AUX.update(aux)
 
 
@@ -1135,9 +1234,10 @@ def _train_loop(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: Optional
                 verbose: bool, log_every: int, device, *, step_fn: Callable, with_occ: bool,
                 prefix: str, noise: Optional[Callable[..., StepNoise]] = None,
                 checkpoint_store=None, resume: bool = False,
-                base_grid: Optional[VoxelGrid] = None) -> Tuple[VoxelGrid, List[float]]:
-    """The single-card loop of :func:`train_plenoxel` and :func:`train_sdf`
-    on ``device``. Set-up: a fresh grid unless one is given, the coarse
+                base_grid: Optional[VoxelGrid] = None,
+                init: Callable[..., TrainState] = init_state) -> Tuple[VoxelGrid, List[float]]:
+    """The single-card loop of :func:`train_plenoxel`, :func:`train_sdf`
+    and dense/dvgo.py's ``train_dvgo`` on ``device``. Set-up: a fresh grid unless one is given, the coarse
     phase through this loop, the training state (or the checkpoint's), the
     rays uploaded once, the generator and the chunk plan. Each epoch: the
     camera gate, the permutation, then each chunk's occupancy refresh, its
@@ -1145,7 +1245,10 @@ def _train_loop(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: Optional
     its loss log (printed after ``prefix``); the checkpoint after the
     epoch. Then the phase record and LAST_TRAIN_AUX. ``noise`` (the
     signature of :func:`_sdf_step_noise`) gives each step's random
-    numbers; without it the step draws them from the generator."""
+    numbers; without it the step draws them from the generator. ``init``
+    builds the training state (:func:`init_state`'s signature); a loss
+    read-back folds the state's tallies into the tracer
+    (:func:`fold_tallies`)."""
     n = len(dataset.origins)
     steps_per_epoch = max(n // cfg.batch_size, 1)
     if grid is None:
@@ -1160,11 +1263,11 @@ def _train_loop(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: Optional
                                                   device, train_fn=loop)
         phases.append(coarse)
     n_cams = _n_cams(cfg, dataset)
-    state = init_state(cfg, grid, steps_per_epoch, n_cams)
+    state = init(cfg, grid, steps_per_epoch, n_cams)
     del grid
     start_epoch = 0
     if resume and checkpoint_store is not None:
-        ck = load_checkpoint(checkpoint_store, cfg, steps_per_epoch, device)
+        ck = load_checkpoint(checkpoint_store, cfg, steps_per_epoch, device, init=init)
         if ck is not None:
             state, start_epoch, losses = ck
             start_epoch += 1
@@ -1217,7 +1320,8 @@ def _train_loop(dataset: RayDataset, cfg: DenseConfig, seed: int, grid: Optional
                 lc = multi(state, cfg, idx, o_all, d_all, rgb_all, occ=occ, cid_all=cid_all,
                            base=base, generator=gen, noise=step_noise)
                 global_step += k_steps
-                log.chunk(lc, b, epoch, state.step)
+                if log.chunk(lc, b, epoch, state.step):
+                    fold_tallies(state)
             if checkpoint_store is not None:
                 save_checkpoint(checkpoint_store, state, epoch, losses)
     _record(state, log, phases, "detail" if base is not None else "fine" if phases else "train",

@@ -276,6 +276,27 @@ def _graph_mark(name: str, marks: list):
     marks.append((name, start, end))
 
 
+def thread_context() -> tuple:
+    """This thread's open hot spans and a capture's marks list, for work that
+    another thread runs on its behalf: the autograd engine runs a CUDA
+    backward on a thread of its own, so a device span there needs the
+    forward's context (:func:`adopt`)."""
+    return list(_stack()), getattr(_LOCAL, "marks", None)
+
+
+@contextlib.contextmanager
+def adopt(context: tuple):
+    """Run the enclosed block with another thread's :func:`thread_context`:
+    its device spans nest under that thread's hot spans and, inside a
+    capture, record into its marks."""
+    prev = getattr(_LOCAL, "stack", None), getattr(_LOCAL, "marks", None)
+    _LOCAL.stack, _LOCAL.marks = list(context[0]), context[1]
+    try:
+        yield
+    finally:
+        _LOCAL.stack, _LOCAL.marks = prev
+
+
 @contextlib.contextmanager
 def graph_marks():
     """Collect, as a list of (name, start, end) event pairs, the device
