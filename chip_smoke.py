@@ -156,7 +156,15 @@ Phases, one line each, any failure exits non-zero:
                scalar path) held against their plain versions bit for bit on
                that step's own points and cotangents, timed, with their
                bounds. The full run appends both as the ``dvgo`` shape of
-               the two kernels' rows, with the phase's launch counts.
+               the two kernels' rows, with the phase's launch counts. The
+               colour MLP's kernels (kernels/rgbnet.py) on that step's own
+               coloured rows and colour cotangents: forward and backward
+               against the plain version on the card, two runs bit for bit,
+               timed beside their FLOP bounds, the plain version, cuBLAS
+               over the same compacted rows with the count known on the host
+               (the library yardstick) and cuBLAS over every sample (the
+               dense path the kernels replaced); each rgbnet kernel launched
+               once a step.
 
 The kernel rows (phase 3): patch_sample_kernel, top2_kernel,
 trilinear_kernel, trilinear_grad_kernel, orient_desc_kernel. The line before
@@ -360,6 +368,13 @@ ORIENT_SAMPLE_TOL = 1e-5
 # Phase 14: the dvgo-160.train cell's step (densify --model dvgo
 # --grid-resolution 160 --dense-batch 8192), in chunks of 16 steps.
 DVGO_RES, DVGO_BATCH, DVGO_CHUNK = 160, 8192, 16
+# The colour MLP's FLOPs a coloured row (portbench/counts_dvgo.py): the
+# forward, and the backward's weight gradients and the input gradients the
+# step needs (layers 3 and 2, layer 1's 12 k0 columns).
+RGBNET_FWD_FLOPS = 2 * (39 * 128 + 128 * 128 + 128 * 3)
+RGBNET_BWD_FLOPS = RGBNET_FWD_FLOPS + 2 * (3 * 128 + 128 * 128 + 128 * 12)
+RGBNET_KERNELS = ("rgbnet_count_kernel", "rgbnet_compact_kernel", "rgbnet_forward_kernel",
+                  "rgbnet_backward_kernel", "rgbnet_reduce_kernel")
 
 
 # --------------------------------------------------------------------------
@@ -1105,7 +1120,8 @@ def _run_dvgo(torch, dev) -> dict:
                     o, d, rgb, generator=g) for c in range(3)]
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches = {k: LAUNCHES[k] for k in ("trilinear_kernel", "trilinear_grad_kernel")}
+    launches = {k: LAUNCHES[k] for k in ("trilinear_kernel", "trilinear_grad_kernel",
+                                          *RGBNET_KERNELS)}
     replays, eager = multi.replays, multi.eager_chunks
     multi.release()
     losses = torch.cat(losses).cpu().numpy()
@@ -1122,25 +1138,37 @@ def _run_dvgo(torch, dev) -> dict:
             _fail(f"dvgo: {name} launched {got} times in {3 * K} steps")
     if not np.isfinite(losses).all():
         _fail(f"dvgo: a loss is not finite: {losses}")
-    # One more step, eager, with the scatter's inputs recorded.
+    # One more step, eager, with the scatter's and the MLP's inputs recorded.
     seen = {}
-    scatter = tg.trilinear_scatter_grad
+    scatter, mlp_fwd, mlp_bwd = tg.trilinear_scatter_grad, dvgo.rgbnet_forward, dvgo.rgbnet_backward
 
     def recording(ct, mn, mx, res, pts):
         seen.update(ct=ct.clone(), mn=mn, mx=mx, res=res, pts=pts.clone())
         return scatter(ct, mn, mx, res, pts)
 
+    def recording_fwd(k0, emb, coloured, params, save=True):
+        seen.update(vals=k0._base.detach().clone(), emb=emb.clone(), coloured=coloured.clone())
+        return mlp_fwd(k0, emb, coloured, params, save)
+
+    def recording_bwd(gc, saved, params):
+        seen.update(g=gc.clone())
+        return mlp_bwd(gc, saved, params)
+
     tg.trilinear_scatter_grad = recording
+    dvgo.rgbnet_forward, dvgo.rgbnet_backward = recording_fwd, recording_bwd
     try:
         ix = torch.arange(3 * K * B, n, device=dev)
         dvgo.dvgo_train_step(state, cfg, o[ix], d[ix], rgb[ix], generator=g)
         torch.cuda.synchronize()
     finally:
         tg.trilinear_scatter_grad = scatter
+        dvgo.rgbnet_forward, dvgo.rgbnet_backward = mlp_fwd, mlp_bwd
     ct, mn, mx, res, pts = (seen[k] for k in ("ct", "mn", "mx", "res", "pts"))
     if ct.shape != (B * S, dvgo.CHANNELS) or res != (R,) * 3:
         _fail(f"dvgo: the step scattered {tuple(ct.shape)} cotangents into {res}")
     del o, d, rgb, multi
+    mlp = _check_rgbnet(torch, [p.detach() for p in state.params], seen.pop("vals"),
+                        seen.pop("emb"), seen.pop("coloured"), seen.pop("g"))
     vals = state.grid.grid.detach()
     vol = vals.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
     fwd = _trilinear_shape(torch, "dvgo", vals, vol, mn, mx, pts)
@@ -1157,7 +1185,101 @@ def _run_dvgo(torch, dev) -> dict:
     del state, ct, pts, vals
     torch.cuda.empty_cache()
     return {"trilinear_kernel": dict(fwd, launches=launches["trilinear_kernel"]),
-            "trilinear_grad_kernel": dict(row, launches=launches["trilinear_grad_kernel"])}
+            "trilinear_grad_kernel": dict(row, launches=launches["trilinear_grad_kernel"]),
+            **{name: dict(r, launches=launches[name]) for name, r in mlp.items()}}
+
+
+def _mlp_chain(torch, x, params, g=None):
+    """The colour MLP as cuBLAS products and eager passes over the rows of
+    x (R, 39): the forward, and with the colours' cotangent ``g`` (R, 3)
+    the backward of the dense path that the kernels replaced (the leaves'
+    gradients and the 12 k0 columns of the input's)."""
+    w1, b1, w2, b2, w3, b3 = params
+    h1 = torch.addmm(b1, x, w1.t()).relu_()
+    h2 = torch.addmm(b2, h1, w2.t()).relu_()
+    c = torch.sigmoid(torch.addmm(b3, h2, w3.t()))
+    if g is None:
+        return c
+    gl = g * (1 - c) * c
+    gw3, gb3 = gl.t().mm(h2), gl.sum(0)
+    gh = torch.ops.aten.threshold_backward(gl.mm(w3), h2, 0.0)
+    gw2, gb2 = gh.t().mm(h1), gh.sum(0)
+    gh = torch.ops.aten.threshold_backward(gh.mm(w2), h1, 0.0)
+    return gh.mm(w1[:, :12]), gh.t().mm(x), gh.sum(0), gw2, gb2, gw3, gb3
+
+
+def _check_rgbnet(torch, params, vals, emb, coloured, g) -> dict:
+    """The colour MLP's kernels on one DVGO step's own coloured rows and
+    colour cotangents: forward (the compaction with it) and backward
+    against the plain version on the card, two runs bit for bit, each
+    timed beside its FLOP bound, the plain version, cuBLAS over the same
+    compacted rows with the count known on the host, and cuBLAS over every
+    sample. Returns the rgbnet_forward_kernel and rgbnet_backward_kernel
+    rows."""
+    from tpu3d_torch.kernels import rgbnet as K
+
+    k0 = vals[:, 1:]
+    R, S = k0.shape[0], k0.shape[0] // emb.shape[0]
+    mask = coloured.reshape(-1)
+    n = int(mask.sum())
+    c, count, saved = K.rgbnet_forward(k0, emb, coloured, params, True)
+    gk0, grads = K.rgbnet_backward(g, saved, params)
+    c2, count2, saved2 = K.rgbnet_forward(k0, emb, coloured, params, True)
+    gk02, grads2 = K.rgbnet_backward(g, saved2, params)
+    torch.cuda.synchronize()
+    bits = (torch.equal(c, c2) and torch.equal(gk0, gk02)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+    want_c, _, want_saved = K.rgbnet_forward_plain(k0, emb, coloured, params)
+    want_gk0, want_grads = K.rgbnet_backward_plain(g, want_saved, params)
+    err_c = float((c - want_c).abs().max())
+    err_gk0 = float((gk0 - want_gk0).abs().max()) / max(float(want_gk0.abs().max()), 1e-30)
+    err_w = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                for a, b in zip(grads, want_grads))
+    zeros = bool((c[~mask].view(torch.int32) == 0).all()
+                 and (gk0[~mask].view(torch.int32) == 0).all())
+    del c2, saved2, gk02, grads2, want_saved, want_c, want_gk0, want_grads
+    print(f"rgbnet: {n} of {R} rows coloured ({100 * n / R:.2f}%, count {int(count)}): against "
+          f"the plain version c max_abs_err={err_c:.3g}, gk0 {err_gk0:.3g} of its largest, the "
+          f"leaves' gradients {err_w:.3g} of their norm (worst); +0 at every uncoloured row "
+          f"{'yes' if zeros else 'NO'}; two runs bit for bit {'yes' if bits else 'NO'}",
+          flush=True)
+    if not (bits and zeros and int(count) == n and err_c <= 2e-6 and err_gk0 <= 1e-4
+            and err_w <= 1e-4):
+        _fail("rgbnet: the kernels do not match the plain version")
+    del c, gk0, grads
+    fwd_flops, bwd_flops = n * RGBNET_FWD_FLOPS, n * RGBNET_BWD_FLOPS
+    rows = K.compact(coloured)[0][:n].long()
+    x = torch.cat([k0[rows], emb[rows // S]], -1)
+    gr = g[rows].contiguous()
+    x_dense = torch.cat([k0, emb[:, None, :].expand(-1, S, -1).reshape(R, -1)], -1)
+    out = {}
+    for name, bound, fns in (
+            ("rgbnet_forward_kernel", fwd_flops,
+             (lambda: K.rgbnet_forward(k0, emb, coloured, params, True),
+              lambda: K.rgbnet_forward_plain(k0, emb, coloured, params),
+              lambda: _mlp_chain(torch, x, params), lambda: _mlp_chain(torch, x_dense, params))),
+            ("rgbnet_backward_kernel", bwd_flops,
+             (lambda: K.rgbnet_backward(g, saved, params),
+              lambda: K.rgbnet_backward_plain(g, K.rgbnet_forward_plain(
+                  k0, emb, coloured, params)[2], params),
+              lambda: _mlp_chain(torch, x, params, gr),
+              lambda: _mlp_chain(torch, x_dense, params, g)))):
+        row = dict(name=name, route="cuda", source="tpu3d_torch/csrc/rgbnet.cu", replaces=None,
+                   bound_by="operations", max_abs_err=err_c if "forward" in name else err_gk0,
+                   shape="dvgo", N=R, rows=n, bound_ms=bound / H100_FP32_FLOPS * 1e3)
+        for prefix, fn in zip(("", "plain_", "library_", "dense_"), fns):
+            row.update(_times(torch, fn, 5, prefix))
+        out[name] = row
+        dense = row["dense_ms"]
+        print(f"kernel {name} dvgo {R // S}x{S} ({n} rows coloured): bound_ms="
+              f"{row['bound_ms']:.4f} ({100 * row['bound_ms'] / row['ms']:.1f}% of it); "
+              + _fmt_times(row) + f"; dense (cuBLAS over all {R} rows) device "
+              f"{'not measured' if dense is None else f'{dense:.4f}'} ms / wall "
+              f"{row['dense_wall_ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    print("kernel rgbnet (backward includes the plain forward in its plain time; the "
+          "library and dense rows' backward includes their forward)", flush=True)
+    return out
 
 
 def _orient_desc_inputs(torch, dev, scene, cfg):
@@ -3579,9 +3701,17 @@ def main(argv=()) -> int:
         del dense
         torch.cuda.empty_cache()
         with f32_scope():
+            # The trilinear rows gain the ``dvgo`` shape; the colour MLP's
+            # kernels are rows of their own, with phase 14's launches.
+            dvgo_rows, dvgo_launches = {}, {}
             for name, shape in _run_dvgo(torch, dev).items():
-                next(row for row in kernels
-                     if row["name"] == name).setdefault("shapes", []).append(shape)
+                row = next((row for row in kernels if row["name"] == name), None)
+                if row is None:
+                    dvgo_rows[name] = shape
+                    dvgo_launches[name] = shape["launches"]
+                else:
+                    row.setdefault("shapes", []).append(shape)
+            kernels.extend(dvgo_rows.values())
 
         if kernels_only:
             launches = {row["name"]: None for row in kernels}
@@ -3618,6 +3748,7 @@ def main(argv=()) -> int:
         for root in [*roots.values(), *(build / f"chip_smoke_{k}"
                                         for k in ("sfm", "sdf", "learned", "dist", "trace"))]:
             shutil.rmtree(root, ignore_errors=True)
+    launches.update(dvgo_launches)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wall_ms",

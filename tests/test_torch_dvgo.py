@@ -3,8 +3,10 @@ against the plain reference portbench/reference/dvgo.py, on seeded random
 grids and MLP weights at a 12^3 grid with the published MLP widths: the
 pixels, each loss term and every leaf's gradient, MaskedAdam, the dead
 samples outside the box, the two tau filters, the lr decay, the chunked
-loop, checkpoint and resume, ``densify --model dvgo`` then ``render``, and
-every refused flag."""
+loop, the tallies, the colour MLP over the coloured samples alone
+(kernels/rgbnet.py's plain version) against the MLP over every sample,
+checkpoint and resume, ``densify --model dvgo`` then ``render``, and every
+refused flag."""
 import threading
 
 import numpy as np
@@ -21,6 +23,7 @@ from tpu3d_torch.dense import dvgo
 from tpu3d_torch.dense import train as TT
 from tpu3d_torch.dense.grid import VoxelGrid
 from tpu3d_torch.io.artifacts import ArtifactStore
+from tpu3d_torch.kernels import rgbnet
 from tpu3d_torch.utils import trace
 
 RES = 12
@@ -211,6 +214,97 @@ def test_tallies_fold_into_the_tracer_at_a_read_back(monkeypatch):
     # reads back at steps 0, 2, 4: the tallies of steps 1-5 fold in
     assert counters["dense.rgbnet_rows"] == 5 * 48 * S
     assert 0 < counters["dense.colour_samples"] < counters["dense.rgbnet_rows"]
+    assert counters["dense.rgbnet_rows_run"] == counters["dense.colour_samples"]
+
+
+def _dense_forward(k0, emb, coloured, params, save=True):
+    """The colour MLP over every row (the dense formula): rgbnet_forward's
+    interface, the colours of the uncoloured rows kept."""
+    R, S = k0.shape[0], k0.shape[0] // emb.shape[0]
+    w1, b1, w2, b2, w3, b3 = params
+    x = torch.cat([k0, emb[:, None, :].expand(-1, S, -1).reshape(R, -1)], -1)
+    h1 = torch.addmm(b1, x, w1.t()).relu_()
+    h2 = torch.addmm(b2, h1, w2.t()).relu_()
+    c = torch.sigmoid(torch.addmm(b3, h2, w3.t()))
+    return c, coloured.sum(dtype=torch.int32).reshape(1), (x, h1, h2, c)
+
+
+def _dense_backward(g, saved, params):
+    x, h1, h2, c = saved
+    w1, _, w2, _, w3, _ = params
+    gl = g * (1 - c) * c
+    gh2 = torch.ops.aten.threshold_backward(gl.mm(w3), h2, 0.0)
+    gh1 = torch.ops.aten.threshold_backward(gh2.mm(w2), h1, 0.0)
+    return gh1.mm(w1[:, :12]), (gh1.t().mm(x), gh1.sum(0), gh2.t().mm(h1), gh2.sum(0),
+                                gl.t().mm(h2), gl.sum(0))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compacted_mlp_equals_the_dense_formula_on_coloured_rows(seed):
+    """kernels/rgbnet.py's plain version against the MLP over every row:
+    the colours of the coloured rows and 0 at the others, the k0 cotangent
+    likewise (+0), and the leaves' gradients when the cotangent is 0 at the
+    uncoloured rows, as the step's is."""
+    g = torch.Generator().manual_seed(seed)
+    N, S = 24, 31
+    k0 = torch.randn((N * S, 13), generator=g)[:, 1:]
+    emb = dvgo.view_encoding(F.normalize(torch.randn((N, 3), generator=g), dim=-1))
+    coloured = torch.rand((N, S), generator=g) < 0.4
+    params = dvgo.init_rgbnet(seed + 3)
+    params = params[:-1] + (0.1 * torch.randn(3, generator=g),)
+    mask = coloured.reshape(-1)
+    cot = torch.randn((N * S, 3), generator=g) * mask[:, None]
+    c, count, saved = rgbnet.rgbnet_forward(k0, emb, coloured, params)
+    gk0, grads = rgbnet.rgbnet_backward(cot, saved, params)
+    want_c, _, want_saved = _dense_forward(k0, emb, coloured, params)
+    want_gk0, want_grads = _dense_backward(cot, want_saved, params)
+    assert int(count) == int(mask.sum()) and 0 < int(count) < N * S
+    torch.testing.assert_close(c[mask], want_c[mask], rtol=0, atol=1e-6)
+    assert bool((want_c[~mask] != 0).all())
+    for got in (c[~mask], gk0[~mask]):
+        assert bool((got.view(torch.int32) == 0).all())          # +0.0, not -0.0
+    torch.testing.assert_close(gk0[mask], want_gk0[mask], rtol=1e-5, atol=1e-8)
+    for got, want in zip(grads, want_grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    # the CPU compaction: the coloured rows in ascending order
+    idx, n = rgbnet.compact(coloured)
+    assert torch.equal(idx[:int(n)].long(), mask.nonzero().reshape(-1))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_masked_adam_skips_the_same_grid_elements_as_under_the_dense_formula(seed,
+                                                                             monkeypatch):
+    """The whole march, loss and backward with the MLP over the coloured
+    rows against the same with the MLP over every row: the same pixels and
+    terms, the grid gradient's exact zeros (the elements MaskedAdam skips)
+    at the same elements, and the gradients to rounding."""
+    grid, params = _grid(seed), dvgo.init_rgbnet(seed + 10)
+    o, d, rgb, u = _rays(seed=seed)
+    (pix, *_), terms, grads = _program(grid, params, o, d, rgb, u)
+    monkeypatch.setattr(dvgo, "rgbnet_forward", _dense_forward)
+    monkeypatch.setattr(dvgo, "rgbnet_backward", _dense_backward)
+    (want_pix, *_), want_terms, want_grads = _program(grid, params, o, d, rgb, u)
+    torch.testing.assert_close(pix, want_pix, rtol=0, atol=1e-6)
+    for got, want in zip(terms, want_terms):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-8)
+    zero = grads[0] == 0
+    assert torch.equal(zero, want_grads[0] == 0)
+    assert bool(zero[..., 1:].any()) and bool((~zero[..., 1:]).any())
+    for got, want in zip(grads, want_grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
+def test_rgbnet_refuses_what_it_does_not_take():
+    k0, emb = torch.zeros((10, 12)), torch.zeros((2, 27))
+    coloured, params = torch.zeros((2, 5), dtype=torch.bool), dvgo.init_rgbnet(0)
+    rgbnet.rgbnet_forward(k0, emb, coloured, params)
+    for bad in ((torch.zeros((10, 11)), emb, coloured, params),
+                (k0, torch.zeros((3, 27)), coloured, params),
+                (k0, emb, coloured.float(), params),
+                (k0, emb, coloured, params[:5]),
+                (k0.t().contiguous().t(), emb, coloured, params)):
+        with pytest.raises(ValueError):
+            rgbnet.rgbnet_forward(*bad)
 
 
 def test_a_thread_adopts_the_forward_context():

@@ -1650,3 +1650,175 @@ def test_dvgo_spans_and_counters_are_recorded(cuda, gen, monkeypatch):
     S = dvgo.n_samples((16,) * 3)
     assert counters["dense.rgbnet_rows"] == 8 * 256 * S
     assert 0 < counters["dense.colour_samples"] <= counters["dense.rgbnet_rows"]
+    assert counters["dense.rgbnet_rows_run"] == counters["dense.colour_samples"]
+
+
+def _rgbnet_step_inputs(cuda, gen, monkeypatch, res=160, batch=8192):
+    """One DVGO march's MLP inputs at the dvgo-160.train cell's sizes (a
+    160^3 x 13 grid, 8,192 rays, 558 samples): (k0, a view of the values,
+    emb, that step's own coloured mask, the MLP's leaves)."""
+    from tpu3d_torch.dense import dvgo
+
+    cfg, grid, lo, hi, make = _dvgo_setup(cuda, gen, res, batch)
+    grid.mul_(0.1)
+    st = make()
+    o, d, _ = _dvgo_rays(batch, gen, cuda)
+    seen = {}
+    real = dvgo.rgbnet_forward
+
+    def recording(k0, emb, coloured, params, save=True):
+        seen.update(k0=k0, emb=emb, coloured=coloured)
+        return real(k0, emb, coloured, params, save)
+
+    monkeypatch.setattr(dvgo, "rgbnet_forward", recording)
+    with torch.no_grad():
+        dvgo.march(st.grid, st.params, o, d, cfg.near, cfg.far,
+                   dvgo._step_length(cfg, (res,) * 3),
+                   torch.rand((batch, 1), generator=gen, device=cuda))
+    monkeypatch.setattr(dvgo, "rgbnet_forward", real)
+    params = tuple(p.detach() for p in st.params)
+    del st, grid
+    return seen["k0"], seen["emb"], seen["coloured"], params
+
+
+def _positive_zero(t):
+    """Every element +0.0 (not -0.0)."""
+    return bool((t.contiguous().view(torch.int32) == 0).all())
+
+
+def _check_rgbnet(k0, emb, coloured, params, g, grad_tol=1e-4):
+    """The kernels' forward and backward against the plain version run on
+    the card (cuBLAS f32): c on the coloured rows, gk0 and the six leaves'
+    gradients to f32 tolerance, +0 at every uncoloured row of c and gk0.
+    Returns the kernels' outputs."""
+    from tpu3d_torch.kernels import rgbnet as K
+
+    mask = coloured.reshape(-1)
+    c, count, saved = K.rgbnet_forward(k0, emb, coloured, params, True)
+    gk0, grads = K.rgbnet_backward(g, saved, params)
+    torch.cuda.synchronize()
+    want_c, want_count, want_saved = K.rgbnet_forward_plain(k0, emb, coloured, params)
+    want_gk0, want_grads = K.rgbnet_backward_plain(g, want_saved, params)
+    assert int(count) == int(want_count) == int(mask.sum())
+    torch.testing.assert_close(c[mask], want_c[mask], rtol=0, atol=2e-6)
+    assert _positive_zero(c[~mask]) and _positive_zero(gk0[~mask])
+    if bool(mask.any()):
+        scale = float(want_gk0.abs().max())
+        torch.testing.assert_close(gk0[mask], want_gk0[mask], rtol=1e-4, atol=1e-5 * scale)
+    for i, (got, want) in enumerate(zip(grads, want_grads)):
+        assert got.shape == want.shape
+        err = float((got - want).norm()) / max(float(want.norm()), 1e-30)
+        assert err <= grad_tol, (i, err)
+    return c, count, gk0, grads
+
+
+def test_rgbnet_kernels_match_plain_at_the_cell_sizes(cuda, gen, monkeypatch):
+    """The MLP's kernels on one step's own coloured mask at 8,192 rays x 558
+    samples against the plain version: c, gk0 and the six gradients, +0 at
+    every uncoloured row; each kernel launched once; two runs bit for bit."""
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.kernels import rgbnet as K
+
+    k0, emb, coloured, params = _rgbnet_step_inputs(cuda, gen, monkeypatch)
+    assert k0.shape == (8192 * 558, 12) and k0.stride() == (13, 1)
+    n = int(coloured.sum())
+    assert 0 < n < coloured.numel()
+    g = torch.randn((k0.shape[0], 3), generator=gen, device=cuda) * 1e-3
+    names = ("rgbnet_count_kernel", "rgbnet_compact_kernel", "rgbnet_forward_kernel",
+             "rgbnet_backward_kernel", "rgbnet_reduce_kernel")
+    before = {k: LAUNCHES[k] for k in names}
+    with f32_scope():
+        first = _check_rgbnet(k0, emb, coloured, params, g)
+    assert all(LAUNCHES[k] == before[k] + 1 for k in names)
+    c, count, saved = K.rgbnet_forward(k0, emb, coloured, params, True)
+    second = (c, count, *K.rgbnet_backward(g, saved, params))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    assert all(torch.equal(a, b) for a, b in zip(first[3], second[3]))
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, "all"])
+def test_rgbnet_kernels_at_edge_counts(cuda, gen, n):
+    """No coloured row, one, 1,000 (a multiple of neither tile) and every
+    row, at 32 rays x 37 samples: against the plain version, and the
+    compaction's indices against nonzero."""
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense import dvgo
+    from tpu3d_torch.kernels import rgbnet as K
+
+    N, S = 32, 37
+    vals = torch.randn((N * S, 13), generator=gen, device=cuda)
+    emb = dvgo.view_encoding(_unit((N, 3), gen, cuda))
+    coloured = torch.zeros(N * S, dtype=torch.bool, device=cuda)
+    if n == "all":
+        coloured[:] = True
+    elif n:
+        coloured[torch.randperm(N * S, generator=gen, device=cuda)[:n]] = True
+    coloured = coloured.view(N, S)
+    params = tuple(p.to(cuda) for p in dvgo.init_rgbnet(2))
+    params = params[:-1] + (torch.randn(3, generator=gen, device=cuda),)
+    g = torch.randn((N * S, 3), generator=gen, device=cuda)
+    idx, count = K.compact(coloured)
+    rows = coloured.reshape(-1).nonzero().reshape(-1)
+    assert int(count) == rows.numel()
+    assert torch.equal(idx[:rows.numel()].long(), rows)
+    with f32_scope():
+        _check_rgbnet(vals[:, 1:], emb, coloured, params, g, grad_tol=1e-5)
+
+
+def test_rgbnet_graph_replays_over_counts_that_differ(cuda, gen):
+    """The forward and backward captured once in a CUDA graph and replayed
+    on two batches whose coloured counts differ: each against the plain
+    version (the count is read on the card, not at capture)."""
+    from tpu3d_torch import f32_scope
+    from tpu3d_torch.dense import dvgo
+    from tpu3d_torch.kernels import rgbnet as K
+
+    N, S = 512, 93
+    R = N * S
+    vals = torch.zeros((R, 13), device=cuda)
+    emb = torch.zeros((N, 27), device=cuda)
+    coloured = torch.zeros((N, S), dtype=torch.bool, device=cuda)
+    g = torch.zeros((R, 3), device=cuda)
+    params = tuple(p.to(cuda) for p in dvgo.init_rgbnet(4))
+    k0 = vals[:, 1:]
+
+    def load(share):
+        vals.copy_(torch.randn((R, 13), generator=gen, device=cuda))
+        emb.copy_(dvgo.view_encoding(_unit((N, 3), gen, cuda)))
+        coloured.copy_(torch.rand((N, S), generator=gen, device=cuda) < share)
+        g.copy_(torch.randn((R, 3), generator=gen, device=cuda))
+
+    def run():
+        c, count, saved = K.rgbnet_forward(k0, emb, coloured, params, True)
+        return (c, count) + K.rgbnet_backward(g, saved, params)
+
+    with f32_scope():
+        load(0.5)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        counts = []
+        for share in (0.2, 0.7):
+            load(share)
+            graph.replay()
+            torch.cuda.synchronize()
+            c, count, gk0, grads = out
+            counts.append(int(count))
+            mask = coloured.reshape(-1)
+            want_c, _, want_saved = K.rgbnet_forward_plain(k0, emb, coloured, params)
+            want_gk0, want_grads = K.rgbnet_backward_plain(g, want_saved, params)
+            torch.testing.assert_close(c, want_c, rtol=0, atol=2e-6)
+            assert _positive_zero(gk0[~mask])
+            torch.testing.assert_close(gk0, want_gk0, rtol=1e-4,
+                                       atol=1e-5 * float(want_gk0.abs().max()))
+            for got, want in zip(grads, want_grads):
+                assert float((got - want).norm()) <= 1e-5 * float(want.norm())
+        assert counts[0] != counts[1]
+        del graph

@@ -34,12 +34,18 @@ shallow MLP, at the published widths:
   20000).
 
 The step keeps the dense (N, S) layout with masks: every sample of every
-ray is sampled and goes through the MLP (``dense.rgbnet_rows`` counts them),
-and the masks zero what DVGO's equations leave out (``dense.colour_samples``
-counts the samples they colour). The trilinear gather and its scatter are
-the plenoxel step's kernels at 13 channels; the MLP's forward and backward
-are one autograd Function whose device spans are ``dense.rgbnet`` and
-``dense.rgbnet_backward``. The grid spans [-scene_scale, scene_scale]^3.
+ray is sampled, read from the grid and composited (``dense.rgbnet_rows``
+counts them), and the masks zero what DVGO's equations leave out. Only the
+samples they colour (``dense.colour_samples``) go through the MLP, as DVGO
+skips the others: kernels/rgbnet.py compacts their rows on the device and
+runs the MLP's forward and backward on them alone (hand-written kernels on
+the card that read the row count there, so a step still replays as one
+CUDA graph; ``dense.rgbnet_rows_run`` counts the rows they ran), and every
+other sample's colour and k0 cotangent is 0. The trilinear gather and its
+scatter are the plenoxel step's kernels at 13 channels; the MLP's forward
+and backward, compaction included, are one autograd Function whose device
+spans are ``dense.rgbnet`` and ``dense.rgbnet_backward``. The grid spans
+[-scene_scale, scene_scale]^3.
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from tpu3d_torch.config import DenseConfig
 from tpu3d_torch.dense.grid import VoxelGrid, create_grid
 from tpu3d_torch.dense.train import (LAST_TRAIN_AUX, LrSchedule, MaskedAdam, RayDataset,
                                      StepNoise, TrainState, _train_loop, _update)
+from tpu3d_torch.kernels.rgbnet import rgbnet_backward, rgbnet_forward
 from tpu3d_torch.kernels.trilinear import trilinear_sample
 from tpu3d_torch.kernels.trilinear_grad import trilinear_sample_diff
 from tpu3d_torch.utils.trace import adopt, device_span, thread_context
@@ -74,7 +81,7 @@ WEIGHT_RGBPER = 1e-2
 GRID_LR, RGBNET_LR = 0.1, 1e-3
 LR_DECAY_STEPS = 20 * 1000     # lrate_decay 20, in thousands of steps
 BETAS, EPS = (0.9, 0.99), 1e-8
-TALLIES = ("dense.rgbnet_rows", "dense.colour_samples")
+TALLIES = ("dense.rgbnet_rows", "dense.colour_samples", "dense.rgbnet_rows_run")
 
 
 def act_shift(alpha_init: float = ALPHA_INIT) -> float:
@@ -139,48 +146,43 @@ def init_rgbnet(seed: int = 0, device="cpu") -> Tuple[torch.Tensor, ...]:
 
 
 class _RgbNet(torch.autograd.Function):
-    """The colour MLP over every sample: the view encoding of each ray's
-    direction beside each sample's k0, three linears with ReLU between,
-    the sigmoid; its backward by hand (no autograd graph of its own). The
-    forward is the device span ``dense.rgbnet``, the backward
-    ``dense.rgbnet_backward``, recorded in the forward's thread context
-    (the autograd engine runs a CUDA backward on its own thread)."""
+    """The colour MLP over the coloured samples: the view encoding of each
+    ray's direction beside each coloured sample's k0, three linears with
+    ReLU between, the sigmoid (kernels/rgbnet.py); (c (R, 3), 0 at every
+    other sample, and the count of rows run). The forward is the device
+    span ``dense.rgbnet``, the backward ``dense.rgbnet_backward``, recorded
+    in the forward's thread context (the autograd engine runs a CUDA
+    backward on its own thread). Saves what the backward needs only when
+    ``save``."""
 
     @staticmethod
-    def forward(ctx, k0, dirs, w1, b1, w2, b2, w3, b3):
+    def forward(ctx, k0, dirs, coloured, save, w1, b1, w2, b2, w3, b3):
         ctx.context = thread_context()
+        params = (w1, b1, w2, b2, w3, b3)
         with device_span("dense.rgbnet"):
-            N, R = dirs.shape[0], k0.shape[0]
-            emb = view_encoding(dirs)
-            x = torch.cat([k0.reshape(N, R // N, K0_DIM),
-                           emb[:, None, :].expand(N, R // N, emb.shape[1])], -1).view(R, -1)
-            h1 = torch.addmm(b1, x, w1.t()).relu_()
-            h2 = torch.addmm(b2, h1, w2.t()).relu_()
-            c = torch.sigmoid(torch.addmm(b3, h2, w3.t()))
-        ctx.save_for_backward(x, h1, h2, c, w1, w2, w3)
-        return c
+            c, count, saved = rgbnet_forward(k0, view_encoding(dirs), coloured, params, save)
+        if saved is not None:
+            ctx.save_for_backward(*saved, *params)
+        ctx.mark_non_differentiable(count)
+        return c, count
 
     @staticmethod
-    def backward(ctx, g):
-        x, h1, h2, c, w1, w2, w3 = ctx.saved_tensors
+    def backward(ctx, g, _):
+        *saved, w1, b1, w2, b2, w3, b3 = ctx.saved_tensors
         with adopt(ctx.context), device_span("dense.rgbnet_backward"):
-            gl = g * (1 - c) * c
-            gw3, gb3 = gl.t().mm(h2), gl.sum(0)
-            gh = torch.ops.aten.threshold_backward(gl.mm(w3), h2, 0.0)    # ReLU's backward
-            gw2, gb2 = gh.t().mm(h1), gh.sum(0)
-            gh = torch.ops.aten.threshold_backward(gh.mm(w2), h1, 0.0)
-            gw1, gb1 = gh.t().mm(x), gh.sum(0)
-            gk0 = gh.mm(w1[:, :K0_DIM])
-        return gk0, None, gw1, gb1, gw2, gb2, gw3, gb3
+            gk0, grads = rgbnet_backward(g, saved, (w1, b1, w2, b2, w3, b3))
+        return (gk0, None, None, None, *grads)
 
 
 def march(vg: VoxelGrid, rgbnet: Sequence[torch.Tensor], rays_o: torch.Tensor,
           rays_d: torch.Tensor, near: float, far: float, step: float,
-          u: Optional[torch.Tensor] = None):
+          u: Optional[torch.Tensor] = None, tallies: Optional[dict] = None):
     """One batch of rays through the model, on a white background: (pixels
-    (N, 3), colours (N, S, 3), the colouring weights [w > tau] w (N, S),
-    T_last (N,), the coloured samples' mask (N, S)). Samples the grid with
-    its gradient when it requires grad."""
+    (N, 3), colours (N, S, 3), 0 where uncoloured, the colouring weights
+    [w > tau] w (N, S), T_last (N,), the coloured samples' mask (N, S)).
+    Samples the grid with its gradient when it requires grad; adds the
+    batch's samples, coloured samples and rows run through the MLP to
+    ``tallies`` (:data:`TALLIES`) when given."""
     N = rays_o.shape[0]
     S = n_samples(vg.grid.shape[:3])
     pts, dead = sample_ray(rays_o, rays_d, vg.min_bound, vg.max_bound, near, far, S, step, u)
@@ -196,7 +198,14 @@ def march(vg: VoxelGrid, rgbnet: Sequence[torch.Tensor], rays_o: torch.Tensor,
     w = torch.where(live, alpha, torch.zeros_like(alpha)) * trans
     t_last = torch.exp(cum[:, -1])
     coloured = w > FAST_COLOR_THRES
-    c = _RgbNet.apply(vals[:, 1:], rays_d, *rgbnet).view(N, S, 3)
+    k0 = vals[:, 1:]
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (k0, *rgbnet))
+    c, count = _RgbNet.apply(k0, rays_d, coloured, save, *rgbnet)
+    c = c.view(N, S, 3)
+    if tallies is not None:
+        tallies["dense.rgbnet_rows"].add_(coloured.numel())
+        tallies["dense.colour_samples"].add_(coloured.sum())
+        tallies["dense.rgbnet_rows_run"].add_(count[0])
     wc = torch.where(coloured, w, torch.zeros_like(w))
     pix = (wc[..., None] * c).sum(1) + t_last[:, None]
     return pix, c, wc, t_last, coloured
@@ -235,14 +244,10 @@ def dvgo_train_step(state: TrainState, cfg: DenseConfig, rays_o: torch.Tensor,
     vg = state.grid
     if noise is None:
         noise = draw_noise(rays_o.shape[0], generator, rays_o.device)
-    pix, c, wc, t_last, coloured = march(vg, state.params, rays_o, rays_d, cfg.near, cfg.far,
-                                         _step_length(cfg, vg.grid.shape[:3]), noise.u)
+    pix, c, wc, t_last, _ = march(vg, state.params, rays_o, rays_d, cfg.near, cfg.far,
+                                  _step_length(cfg, vg.grid.shape[:3]), noise.u, state.tallies)
     mse, entropy, per = loss_terms(pix, c, wc, t_last, rgb)
     loss = mse + WEIGHT_ENTROPY_LAST * entropy + WEIGHT_RGBPER * per
-    if state.tallies is not None:
-        rows, coloured_n = state.tallies.values()
-        rows.add_(coloured.numel())
-        coloured_n.add_(coloured.sum())
     return _update(state, cfg, loss, None, None)
 
 

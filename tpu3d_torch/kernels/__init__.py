@@ -7,7 +7,9 @@ from __future__ import annotations
 
 LAUNCHES = {"patch_sample_kernel": 0, "top2_kernel": 0, "trilinear_kernel": 0,
             "trilinear_grad_kernel": 0, "orient_desc_kernel": 0, "rmsprop_kernel": 0,
-            "shade_composite_kernel": 0, "view_rays_kernel": 0}
+            "shade_composite_kernel": 0, "view_rays_kernel": 0, "rgbnet_count_kernel": 0,
+            "rgbnet_compact_kernel": 0, "rgbnet_forward_kernel": 0, "rgbnet_backward_kernel": 0,
+            "rgbnet_reduce_kernel": 0}
 
 
 def reset_launches() -> None:

@@ -52,6 +52,11 @@ _SIGNATURES = {
     "tpu3d_shade_composite": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I, _I, _P],
     # one packed block of arguments (ViewRaysArgs), built by the wrapper
     "tpu3d_view_rays": [ctypes.c_char_p],
+    # mask, n, block counts, idx, count, stream
+    "tpu3d_rgbnet_compact": [_P, ctypes.c_int64, _P, _P, _P, _P],
+    # one packed block of arguments (FwdArgs / BwdArgs), built by the wrapper
+    "tpu3d_rgbnet_forward": [ctypes.c_char_p],
+    "tpu3d_rgbnet_backward": [ctypes.c_char_p],
 }
 
 
